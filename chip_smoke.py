@@ -1,30 +1,47 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile_dir DIR]
 
-Three phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero:
 
 1. Environment and build: torch / CUDA / triton / nvcc versions, the card's
-   name and power limit, then the seg compositor kernels built from
-   ``edgegaussians_tpu_torch/csrc/`` (timed, with the compiler's register
-   and shared-memory report).
-2. Kernels against their plain PyTorch versions at full size: the 5
-   cameras of ``bench_fixture/abc_00004926.npz`` (12740 Gaussians,
-   800x800, cap 768, pair budget 49152), forward and backward, plus the
-   whole rasterizer on the GPU against the CPU path on a small scene.
-   Prints errors and fwd/bwd times (CUDA events, median of 5 blocks).
-3. The training main path: a synthetic 10-view 800x800 scan trained for 3
+   name and power limit, then every kernel source of
+   ``edgegaussians_tpu_torch/csrc/`` built at once, one nvcc each (timed,
+   with the compiler's register and shared-memory report).
+2. The seg compositor kernels against their plain PyTorch versions at full
+   size: the 5 cameras of ``bench_fixture/abc_00004926.npz`` (12740
+   Gaussians, 800x800, cap 768, pair budget 49152), forward and backward.
+   2 (dense): the dense compositor kernels against theirs on the same
+   cameras at the recipe's two-level settings (k1 128, k2 640, t2 128,
+   occupancy sort, pair budget 0), both levels, level 2 fed level 1's
+   t_out. Both print errors and fwd/bwd times (CUDA events, median of 5
+   blocks) per camera beside each kernel's bound.
+   2b: the whole rasterizer on the GPU against the CPU path on a small
+   scene, through the seg, two-level and single-level dispatch.
+3. The seg main path: a synthetic 10-view 800x800 scan trained for 3
    epochs of the ``configs/ABC_DexiNed.json`` recipe through
-   ``edgegaussians_tpu_torch.cli.train --backend cuda``, with both kernels'
-   launch counts held to epochs x views.
+   ``edgegaussians_tpu_torch.cli.train --backend cuda``, with both seg
+   kernels' launch counts held to epochs x views.
+4. The fallback path: the same scan and recipe for 5 epochs with the pair
+   budget cut below epoch 0's pair count and a duplication moved to epoch
+   2. Epoch 0 overflows and the run switches to the dense two-level path:
+   seg launches = views, dense launches = 2 levels x views x 4 epochs, and
+   ``alive`` grows at the duplication.
 
-The second-to-last line is a JSON object listing each kernel's launches
-on the main path, error and times; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+With ``--profile_dir``, phases 3 and 4 also trace epoch 2 with
+torch.profiler (``cli.train --profile_dir``; the tracing slows those
+epochs) and print, per path, the device's busy share of the window, the
+kernel launches per view step and the top device kernels.
+
+The line before the last names the card and its power limit; before it, a
+JSON object lists each kernel's launches on its path, error, times and
+bound. The last line is ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -35,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,16 +60,36 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
+KERNEL_LIBS = ("segpair", "raster_v2")
 EPOCHS = 3
 VIEWS = 10
+FALLBACK_EPOCHS = 5
+FALLBACK_BUDGET = 2048      # below epoch 0's ~6.2k pairs per view
+DUP_EPOCH = 2
+K1, K2, T2 = 128, 640, 128  # the recipe's two-level settings
 TIMING_BLOCKS = 5
 # forward image: both sides take the same f32 steps per pixel; only the
 # order of the log-alpha sum (FMA chain vs matmul) and of the
 # transmittance products (sequential vs cumprod scan) differ
 IMG_ATOL = 1e-5
-# dpacked / absgrad, relative to the plain version's max-abs: the pair
+# dfeats / dpacked / absgrad, relative to the plain version's max-abs: the
+# per-slot sums over 256 pixels are a shuffle tree vs a matmul, and the
 # rows reach [N,8] through index_add_ atomics, whose order varies by run
 GRAD_RTOL_OF_MAX = 1e-4
+# the H100 SXM's published peaks from NVIDIA's data sheet: HBM bytes/s
+# and f32 FLOP/s outside the tensor cores; the special-function units
+# give 16 results per SM per clock against 128 f32 FMA lanes, so expf and
+# the reciprocal run at F32_FLOPS / 2 / 8 per second
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+SFU_OPS = F32_FLOPS / 16
+# per (slot, pixel) evaluation: log alpha 1 mul + 5 FMA (11 flops), guard,
+# threshold, clamp, 1 - a, t * (1 - a), a * t, the sum (5) and one expf;
+# the backward adds a * gt / (1 - a) (a reciprocal) and the six products
+# and six sums of the per-slot reduction
+FWD_OPS = (16, 1)           # (flops, special-function ops)
+BWD_OPS = (29, 2)
+EPS_T = 1e-4                # transmittance below which a walk stops
 
 
 def log(msg: str = "") -> None:
@@ -82,6 +120,17 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def bound_ms(nbytes: float, evals: float, ops) -> tuple:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over their peak rate, in ms, with
+    what bounds it."""
+    flops, sfu = ops
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(evals * flops / F32_FLOPS, evals * sfu / SFU_OPS)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_environment():
     from edgegaussians_tpu_torch.ops import _build
     log("== phase 1: environment and build")
@@ -100,34 +149,52 @@ def phase_environment():
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     log(card)
+
+    def timed_build(name):
+        t0 = time.time()
+        return _build.build(name), time.time() - t0
+
     t0 = time.time()
-    lib = _build.build("segpair")
-    _build.load("segpair")
-    log(f"built {os.path.relpath(lib, REPO)} in {time.time() - t0:.1f}s")
-    log(open(str(lib) + ".log").read().strip())
+    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
+        built = dict(zip(KERNEL_LIBS, pool.map(timed_build, KERNEL_LIBS)))
+    for name, (lib, secs) in built.items():
+        _build.load(name)
+        log(f"built {os.path.relpath(lib, REPO)} in {secs:.1f}s")
+        log(open(str(lib) + ".log").read().strip())
+    log(f"all kernels built in {time.time() - t0:.1f}s")
     return card
 
 
-def fixture_cases(device):
-    """Per camera: the seg compositor's inputs at the main path's shapes."""
-    from edgegaussians_tpu_torch.ops import segpair, tiles
+def fixture_cameras(device):
+    """Per camera of the fixture: (projection, packed rows); plus the
+    image size and the Gaussian count."""
+    from edgegaussians_tpu_torch.ops import tiles
     from edgegaussians_tpu_torch.ops.projection import project_gaussians
     d = np.load(FIXTURE)
     w, h = int(d["width"]), int(d["height"])
     args = [torch.from_numpy(d[k]).to(device)
             for k in ("means", "quats", "scales")]
     opac = torch.from_numpy(d["opacities"]).reshape(-1).to(device)
-    n = opac.shape[0]
-    origins = tiles.tile_origins(w, h, 16, device=device)
-    basis = tiles.pixel_basis(16, device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    cases = []
+    out = []
     with torch.no_grad():
         for c in range(d["viewmats"].shape[0]):
             vm = torch.from_numpy(d["viewmats"][c]).to(device)
             K = torch.from_numpy(d["Ks"][c]).to(device)
             proj = project_gaussians(*args, opac, vm, K, w, h)
-            packed = tiles.pack_gaussian_render_data(proj)
+            out.append((proj, tiles.pack_gaussian_render_data(proj)))
+    return out, w, h, opac.shape[0]
+
+
+def seg_cases(device):
+    """Per camera: the seg compositor's inputs at the main path's shapes."""
+    from edgegaussians_tpu_torch.ops import segpair, tiles
+    cams, w, h, n = fixture_cameras(device)
+    origins = tiles.tile_origins(w, h, 16, device=device)
+    basis = tiles.pixel_basis(16, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases = []
+    with torch.no_grad():
+        for proj, packed in cams:
             pbins = tiles.bin_pairs_frame_order(
                 proj, w, h, 16, min(768, n), 49152,
                 max_tiles_per_gaussian=16)
@@ -142,11 +209,60 @@ def fixture_cases(device):
     return cases, basis
 
 
+def seg_work(cs, basis):
+    """(fwd bytes, bwd bytes, evaluations) one camera's seg kernels need:
+    the kept pairs' features, run table, basis and [T,256] planes read
+    once, outputs written once; a pixel evaluates a pair while its
+    transmittance before the pair is >= 1e-4."""
+    from edgegaussians_tpu_torch.ops import segpair
+    _, _, t_inc, _, _, slot_valid = segpair._padded_alpha(
+        cs["feats"], cs["s_f"], basis)
+    t_before = torch.cat([torch.ones_like(t_inc[:, :1]), t_inc[:, :-1]], 1)
+    evals = int(((t_before >= EPS_T) & slot_valid[..., None]).sum())
+    T = cs["s_f"].shape[0] - 1
+    kept = int(cs["s_f"][-1])
+    common = kept * 32 + (T + 1) * 4 + basis.numel() * 4 + T * 256 * 4
+    return common, common + kept * 32, evals
+
+
+def rel_err(a, b, what: str) -> float:
+    """Max-abs error of ``a`` against ``b`` relative to ``b``'s max-abs,
+    held to GRAD_RTOL_OF_MAX."""
+    scale = b.abs().max().item()
+    rel = (a - b).abs().max().item() / max(scale, 1e-30)
+    if not math.isfinite(rel) or rel > GRAD_RTOL_OF_MAX:
+        raise AssertionError(f"{what} error {rel:.3g} of max-abs")
+    return rel
+
+
+def check_image(e_img: float, what: str) -> None:
+    if not math.isfinite(e_img) or e_img > IMG_ATOL:
+        raise AssertionError(f"{what}: image error {e_img:.3g} > {IMG_ATOL}")
+
+
+def time_kernels(calls, n_cases: int, bounds):
+    """Kernel and plain ms per camera for each entry of ``calls``."""
+    ms = {}
+    with torch.no_grad():
+        for name, (kern, plain) in calls.items():
+            # per camera: one call of each over the cameras per rep
+            ms[name] = (cuda_ms(kern, 20) / n_cases,
+                        cuda_ms(plain, 2) / n_cases)
+            log(f"{name}: kernel {ms[name][0]:.4f} ms, plain "
+                f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                f"({bounds[name][1]}) per camera")
+    fwd, bwd = calls
+    log(f"fwd+bwd per camera: kernel {ms[fwd][0] + ms[bwd][0]:.4f} ms, "
+        f"plain {ms[fwd][1] + ms[bwd][1]:.4f} ms")
+    return ms
+
+
 def phase_kernels(device):
     from edgegaussians_tpu_torch.ops import segpair
-    log("== phase 2: kernels vs plain versions, fixture at 800x800")
-    cases, basis = fixture_cases(device)
+    log("== phase 2: seg kernels vs plain versions, fixture at 800x800")
+    cases, basis = seg_cases(device)
     err = {"segpair_fwd": 0.0, "segpair_bwd": 0.0}
+    work = np.zeros(3)
     for c, cs in enumerate(cases):
         pb = cs["pbins"]
         with torch.no_grad():
@@ -165,31 +281,25 @@ def phase_kernels(device):
                                                  cs["oy"], pb, cs["n"])
             out_r = segpair.pair_grads_to_packed(dfe_r, cs["src"], cs["ox"],
                                                  cs["oy"], pb, cs["n"])
+            work += seg_work(cs, basis)
         e_img = (img_k - img_r).abs().max().item()
         e_dfe = (dfe_k - dfe_r).abs().max().item()
         err["segpair_fwd"] = max(err["segpair_fwd"], e_img)
         err["segpair_bwd"] = max(err["segpair_bwd"], e_dfe)
-        rel = []
-        for name, a, b in zip(("dpacked", "absgrad"), out_k, out_r):
-            scale = b.abs().max().item()
-            rel.append((a - b).abs().max().item() / max(scale, 1e-30))
-            if not math.isfinite(rel[-1]) or rel[-1] > GRAD_RTOL_OF_MAX:
-                raise AssertionError(f"camera {c}: {name} error "
-                                     f"{rel[-1]:.3g} of max-abs")
+        rel = [rel_err(a, b, f"camera {c}: {name}")
+               for name, a, b in zip(("dpacked", "absgrad"), out_k, out_r)]
         log(f"camera {c}: pairs={int(pb.num_pairs)}/49152 "
             f"kept={int(pb.s_f[-1])} max_run={int(pb.counts_f.max())} "
             f"img_err={e_img:.3g} dfeats_err={e_dfe:.3g} "
             f"dpacked_rel={rel[0]:.3g} absgrad_rel={rel[1]:.3g}")
-        if not math.isfinite(e_img) or e_img > IMG_ATOL:
-            raise AssertionError(f"camera {c}: image error {e_img:.3g} > "
-                                 f"{IMG_ATOL}")
+        check_image(e_img, f"camera {c}")
 
     def over_cases(fn):
         return lambda: [fn(cs) for cs in cases]
 
     for cs in cases:
         cs["gt"] = (cs["g"] * 0.5).contiguous()
-    times = {
+    calls = {
         "segpair_fwd": (
             over_cases(lambda cs: segpair.segpair_fwd(
                 cs["feats"], cs["s_f"], basis)),
@@ -201,18 +311,177 @@ def phase_kernels(device):
             over_cases(lambda cs: segpair.segpair_bwd_ref(
                 cs["feats"], cs["s_f"], basis, cs["gt"]))),
     }
-    ms = {}
+    per_cam = work / len(cases)
+    bounds = {"segpair_fwd": bound_ms(per_cam[0], per_cam[2], FWD_OPS),
+              "segpair_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
+    log(f"per camera: {per_cam[2]:.0f} pair-pixel evaluations, "
+        f"{per_cam[0] / 1e6:.2f} MB (fwd) / {per_cam[1] / 1e6:.2f} MB (bwd)")
+    return err, time_kernels(calls, len(cases), bounds), bounds
+
+
+def dense_cases(device):
+    """Per camera: both levels' compositor inputs at the recipe's
+    two-level settings (the dense path the 'fallback' action runs)."""
+    from edgegaussians_tpu_torch.ops import composite, tiles
+    cams, w, h, n = fixture_cameras(device)
+    origins = tiles.tile_origins(w, h, 16, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    cases = []
     with torch.no_grad():
-        for name, (kern, plain) in times.items():
-            # per camera: one call of each over the 5 cameras per rep
-            ms[name] = (cuda_ms(kern, 20) / len(cases),
-                        cuda_ms(plain, 2) / len(cases))
-            log(f"{name}: kernel {ms[name][0]:.4f} ms, plain "
-                f"{ms[name][1]:.4f} ms per camera")
-    log(f"fwd+bwd per camera: kernel "
-        f"{ms['segpair_fwd'][0] + ms['segpair_bwd'][0]:.4f} ms, plain "
-        f"{ms['segpair_fwd'][1] + ms['segpair_bwd'][1]:.4f} ms")
-    return err, ms
+        for proj, packed in cams:
+            bins2 = tiles.bin_gaussians_two_level(
+                proj, w, h, 16, K1, K2, T2, max_tiles_per_gaussian=16,
+                occupancy_sort=True)
+            origins_f = origins[bins2.tile_perm]
+            fr = composite.two_level_frame(packed[bins2.order], bins2,
+                                           origins_f)
+            g = torch.rand((origins.shape[0], 256), generator=gen,
+                           device=device)
+            cases.append(dict(bins2=bins2, fr=fr, origins_f=origins_f, g=g,
+                              n=n))
+    return cases
+
+
+def dense_work(feats, counts, basis, t_in):
+    """(fwd bytes, bwd bytes, evaluations) one level's dense kernels need:
+    the live slots' features, counts, basis and [T,256] planes read once,
+    outputs written once (the backward's whole [T,K,8] dfeats); a pixel
+    evaluates a live slot while its transmittance before it is >= 1e-4."""
+    from edgegaussians_tpu_torch.ops import raster_v2
+    T, K, _ = feats.shape
+    t0 = torch.ones((T, 256), device=feats.device) if t_in is None else t_in
+    evals = 0
+    for r0, r1 in raster_v2._row_chunks(T, K):
+        _, _, t_inc = raster_v2._chunk_alpha(feats[r0:r1], counts[r0:r1],
+                                             basis, t0[r0:r1])
+        t_before = torch.cat([t0[r0:r1, None], t_inc[:, :-1]], 1)
+        live = (torch.arange(K, device=feats.device)[None, :]
+                < counts[r0:r1, None])
+        evals += int(((t_before >= EPS_T) & live[..., None]).sum())
+    live_slots = int(torch.clamp(counts, max=K).sum())
+    plane = T * 256 * 4
+    common = (live_slots * 32 + T * 4 + basis.numel() * 4
+              + (0 if t_in is None else plane))
+    return common + 2 * plane, common + plane + T * K * 32, evals
+
+
+def check_t_out(t_k, t_r, what: str) -> float:
+    """Kernel t_out against the plain version's: relative error where the
+    plain value is >= 1e-4; below it the value depends on where the walk
+    stopped, so only that both are below 1e-4."""
+    live = t_r >= EPS_T
+    rel = ((t_k[live] - t_r[live]).abs() / t_r[live]).max().item() \
+        if bool(live.any()) else 0.0
+    if not math.isfinite(rel) or rel > 1e-5 or \
+            not bool((t_k[~live] < EPS_T).all()):
+        raise AssertionError(f"{what}: t_out disagrees ({rel:.3g})")
+    return rel
+
+
+def phase_dense_kernels(device):
+    from edgegaussians_tpu_torch.ops import composite, raster_v2, tiles
+    log(f"== phase 2 (dense): two-level kernels vs plain versions, fixture "
+        f"at 800x800, k1={K1} k2={K2} t2={T2}, occupancy sort")
+    cases = dense_cases(device)
+    basis = tiles.pixel_basis(16, device=device)
+    err = {"raster_v2_fwd": 0.0, "raster_v2_bwd": 0.0}
+    work = np.zeros(3)
+    for c, cs in enumerate(cases):
+        fr, bins2, g = cs["fr"], cs["bins2"], cs["g"]
+        with torch.no_grad():
+            img1_k, tout1_k = raster_v2.composite_fwd_seg(
+                fr.feats1, fr.counts1, basis)
+            img1_r, tout1_r = raster_v2.composite_fwd_seg_ref(
+                fr.feats1, fr.counts1, basis)
+            # level 2 of both versions starts from the plain level 1's
+            # t_out, so each comparison isolates one kernel launch
+            tin2 = composite.ovf_take(tout1_r, bins2).contiguous()
+            img2_k, tout2_k = raster_v2.composite_fwd_seg(
+                fr.feats2, fr.counts2, basis, tin2)
+            img2_r, tout2_r = raster_v2.composite_fwd_seg_ref(
+                fr.feats2, fr.counts2, basis, tin2)
+            images = composite.ovf_add(img1_r, img2_r, bins2)
+            g2 = composite.ovf_take(g, bins2).contiguous()
+            tot2 = composite.ovf_take(images, bins2).contiguous()
+            d1_k = raster_v2.composite_bwd_seg(fr.feats1, fr.counts1, basis,
+                                               g, None, images)
+            d1_r = raster_v2.composite_bwd_seg_ref(fr.feats1, fr.counts1,
+                                                   basis, g, None, images)
+            d2_k = raster_v2.composite_bwd_seg(fr.feats2, fr.counts2, basis,
+                                               g2, tin2, tot2)
+            d2_r = raster_v2.composite_bwd_seg_ref(fr.feats2, fr.counts2,
+                                                   basis, g2, tin2, tot2)
+            torch.cuda.synchronize()
+            outs = []
+            for d1, d2 in ((d1_k, d2_k), (d1_r, d2_r)):
+                dg1 = composite.tile_features_vjp(fr.g1, cs["origins_f"],
+                                                  fr.validf1, d1)
+                dg2 = composite.tile_features_vjp(fr.g2, fr.origins2,
+                                                  fr.validf2, d2)
+                outs.append(composite.scatter_slot_grads(
+                    [(dg1, fr.validf1, bins2.ranks1),
+                     (dg2, fr.validf2, bins2.ranks2)], bins2.order,
+                    cs["n"]))
+            work += dense_work(fr.feats1, fr.counts1, basis, None)
+            work += dense_work(fr.feats2, fr.counts2, basis, tin2)
+        e_img = max((img1_k - img1_r).abs().max().item(),
+                    (img2_k - img2_r).abs().max().item())
+        e_tout = max(check_t_out(tout1_k, tout1_r, f"camera {c} level 1"),
+                     check_t_out(tout2_k, tout2_r, f"camera {c} level 2"))
+        e_dfe = max((d1_k - d1_r).abs().max().item(),
+                    (d2_k - d2_r).abs().max().item())
+        err["raster_v2_fwd"] = max(err["raster_v2_fwd"], e_img)
+        err["raster_v2_bwd"] = max(err["raster_v2_bwd"], e_dfe)
+        rel = [rel_err(d1_k, d1_r, f"camera {c}: dfeats level 1"),
+               rel_err(d2_k, d2_r, f"camera {c}: dfeats level 2")]
+        rel += [rel_err(a, b, f"camera {c}: {name}") for name, a, b in
+                zip(("dpacked", "absgrad"), outs[0], outs[1])]
+        log(f"camera {c}: pairs={int(bins2.num_pairs)} "
+            f"live1={int(fr.counts1.sum())} live2={int(fr.counts2.sum())} "
+            f"max_count={int(bins2.counts.max())} img_err={e_img:.3g} "
+            f"t_out_rel={e_tout:.3g} dfeats_err={e_dfe:.3g} "
+            f"dfeats_rel={max(rel[:2]):.3g} dpacked_rel={rel[2]:.3g} "
+            f"absgrad_rel={rel[3]:.3g}")
+        check_image(e_img, f"camera {c}")
+
+    for cs in cases:
+        fr, bins2 = cs["fr"], cs["bins2"]
+        with torch.no_grad():
+            img1, tout1 = raster_v2.composite_fwd_seg_ref(
+                fr.feats1, fr.counts1, basis)
+        cs["tin2"] = composite.ovf_take(tout1, bins2).contiguous()
+        cs["total"] = (0.5 + 0.5 * img1).contiguous()
+        cs["g2"] = composite.ovf_take(cs["g"], bins2).contiguous()
+        cs["total2"] = composite.ovf_take(cs["total"], bins2).contiguous()
+
+    def over_cases(fn):
+        return lambda: [fn(cs) for cs in cases]
+
+    def fwd(f):
+        return over_cases(lambda cs: (
+            f(cs["fr"].feats1, cs["fr"].counts1, basis),
+            f(cs["fr"].feats2, cs["fr"].counts2, basis, cs["tin2"])))
+
+    def bwd(f):
+        return over_cases(lambda cs: (
+            f(cs["fr"].feats1, cs["fr"].counts1, basis, cs["g"], None,
+              cs["total"]),
+            f(cs["fr"].feats2, cs["fr"].counts2, basis, cs["g2"],
+              cs["tin2"], cs["total2"])))
+
+    calls = {
+        "raster_v2_fwd": (fwd(raster_v2.composite_fwd_seg),
+                          fwd(raster_v2.composite_fwd_seg_ref)),
+        "raster_v2_bwd": (bwd(raster_v2.composite_bwd_seg),
+                          bwd(raster_v2.composite_bwd_seg_ref)),
+    }
+    per_cam = work / len(cases)
+    bounds = {"raster_v2_fwd": bound_ms(per_cam[0], per_cam[2], FWD_OPS),
+              "raster_v2_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
+    log(f"per camera, both levels: {per_cam[2]:.0f} slot-pixel "
+        f"evaluations, {per_cam[0] / 1e6:.2f} MB (fwd) / "
+        f"{per_cam[1] / 1e6:.2f} MB (bwd)")
+    return err, time_kernels(calls, len(cases), bounds), bounds
 
 
 def small_scene(seed=0, n=300, width=64, height=48):
@@ -230,7 +499,7 @@ def small_scene(seed=0, n=300, width=64, height=48):
             width, height)
 
 
-def render_grads(scene, device):
+def render_grads(scene, device, **render_kw):
     """Image and the gradients of a weighted clipped-image sum w.r.t. the
     four parameter groups and the absgrad sink, on ``device``."""
     from edgegaussians_tpu_torch.ops.rasterize import rasterize
@@ -240,8 +509,7 @@ def render_grads(scene, device):
     sink = torch.zeros((t[0].shape[0], 2), device=device,
                        requires_grad=True)
     out = rasterize(*params, t[4], t[5], width, height, tile_size=16,
-                    capacity=256, pair_budget=2048, pair_kernel="seg",
-                    absgrad_sink=sink)
+                    absgrad_sink=sink, **render_kw)
     img = torch.clamp(out.image, 0, 1)
     w = (torch.arange(img.numel(), device=device, dtype=torch.float32)
          .reshape(img.shape) % 7) / 7.0 + 0.3
@@ -249,20 +517,33 @@ def render_grads(scene, device):
     return [out.image.detach().cpu()] + [g.cpu() for g in grads]
 
 
+WHOLE_PATHS = {
+    "seg": dict(capacity=256, pair_budget=2048, pair_kernel="seg"),
+    "two_level": dict(capacity=64, dense_capacity=16, overflow_tiles=3,
+                      occupancy_sort=True, pair_budget=0),
+    "single": dict(capacity=64, pair_budget=0),
+}
+
+
 def phase_whole_path(device):
     log("== phase 2b: whole rasterizer, GPU kernels vs CPU plain path")
     scene = small_scene()
     names = ("image", "means", "quats", "scales", "opacities", "absgrad")
-    for name, a, b in zip(names, render_grads(scene, device),
-                          render_grads(scene, torch.device("cpu"))):
-        e = (a - b).abs().max().item()
-        # the JAX package's own seg-vs-dense tolerances
-        # (tests/test_pallas_segpair.py:65-66)
-        ok = torch.allclose(a, b, atol=2e-5 if name == "image" else 3e-4,
-                            rtol=0 if name == "image" else 2e-3)
-        log(f"{name}: max_abs_err={e:.3g}")
-        if not ok:
-            raise AssertionError(f"whole-path {name} disagrees: {e:.3g}")
+    for path, kw in WHOLE_PATHS.items():
+        errs = []
+        for name, a, b in zip(names, render_grads(scene, device, **kw),
+                              render_grads(scene, torch.device("cpu"),
+                                           **kw)):
+            e = (a - b).abs().max().item()
+            # the JAX package's own seg-vs-dense tolerances
+            # (tests/test_pallas_segpair.py:65-66)
+            ok = torch.allclose(a, b, atol=2e-5 if name == "image" else 3e-4,
+                                rtol=0 if name == "image" else 2e-3)
+            errs.append(f"{name}={e:.3g}")
+            if not ok:
+                raise AssertionError(f"whole-path {path} {name} disagrees: "
+                                     f"{e:.3g}")
+        log(f"{path}: max_abs_err " + " ".join(errs))
 
 
 class Tee(io.TextIOBase):
@@ -279,83 +560,201 @@ class Tee(io.TextIOBase):
             st.flush()
 
 
-def phase_main_path(tmp: str):
-    from edgegaussians_tpu.data.synthetic import generate_scene
-    from edgegaussians_tpu.io.ply import read_gaussian_params_from_ply
+def trace_summary(trace_path: str, view_steps: int) -> str:
+    """Device busy share of a torch.profiler Chrome trace's window (the
+    union of the device kernels' intervals over the span of all events),
+    kernel launches per view step, and the top kernels by device time."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    busy, end = 0.0, -math.inf
+    for e in kernels:
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"device busy {busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms "
+            f"window (share {busy / window:.4f}), "
+            f"{len(kernels) / view_steps:.0f} kernel launches per view "
+            "step; top kernels (ms): "
+            + "; ".join(f"{n[:60]} {d / 1e3:.3f}" for n, d in top))
+
+
+def train_cli_run(tmp: str, scan: str, epochs: int, tag: str,
+                  profile_dir=None, **model):
+    """Train the recipe on ``scan`` through the CLI with every launch
+    count set to 0 just before; returns (log text, launches read just
+    after, output dir). ``profile_dir`` traces epoch 2 and prints its
+    summary."""
     from edgegaussians_tpu_torch.cli import train as train_cli
-    from edgegaussians_tpu_torch.ops import segpair
-    log(f"== phase 3: main path, {EPOCHS} epochs of ABC_DexiNed on a "
-        f"{VIEWS}-view 800x800 synthetic scan")
-    scan = "synth0"
-    t0 = time.time()
-    generate_scene(tmp, scan, seed=0, n_views=VIEWS, width=800, height=800)
-    log(f"scan generated in {time.time() - t0:.1f}s")
+    from edgegaussians_tpu_torch.ops import raster_v2, segpair
     with open(RECIPE) as f:
         cfg = json.load(f)
-    cfg["training"]["num_epochs"] = EPOCHS
+    cfg["training"]["num_epochs"] = epochs
+    cfg["model"].update(model)
     cfg["data"]["base_dir"] = os.path.join(tmp, "data") + "/"
     for k in ("output_dir", "checkpoint_dir", "log_dir"):
-        cfg["output"][k] = os.path.join(tmp, "out", k) + "/"
-    cfg_path = os.path.join(tmp, "cfg.json")
+        cfg["output"][k] = os.path.join(tmp, tag, k) + "/"
+    cfg_path = os.path.join(tmp, f"{tag}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-
     captured = io.StringIO()
     segpair.reset_launch_counts()
+    raster_v2.reset_launch_counts()
+    argv = ["--config_file", cfg_path, "--scene_name", scan, "--backend",
+            "cuda", "--force_rerun"]
+    if profile_dir:
+        argv += ["--profile_dir", os.path.join(profile_dir, tag),
+                 "--profile_epochs", "1"]
     with contextlib.redirect_stdout(Tee(sys.stdout, captured)):
-        rc = train_cli.main(["--config_file", cfg_path, "--scene_name",
-                             scan, "--backend", "cuda", "--force_rerun"])
+        rc = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = dict(segpair.launch_counts)
+    launches = dict(segpair.launch_counts, **raster_v2.launch_counts)
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
-    losses = [float(m.group(1)) for m in re.finditer(
-        r"^epoch \d+: loss=(\S+)", captured.getvalue(), re.M)]
-    if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"epoch losses {losses}")
-    for name, count in launches.items():
-        if count != EPOCHS * VIEWS:
-            raise AssertionError(f"{name} launched {count} times on the "
-                                 f"main path, expected {EPOCHS * VIEWS}")
+    if profile_dir:
+        log(f"{tag} path, epoch 2 traced: " + trace_summary(
+            os.path.join(profile_dir, tag, "trace.json"), VIEWS))
     out_dir = os.path.join(cfg["output"]["output_dir"],
                            f"{cfg['output']['exp_name']}_"
                            f"{cfg['data']['edge_detection_method']}", scan)
-    pos, scales, quats, opac = read_gaussian_params_from_ply(
+    return captured.getvalue(), launches, out_dir
+
+
+def epoch_lines(text: str, epochs: int):
+    """(loss, alive, Mpx/s) of each epoch line; all losses finite."""
+    rows = [(float(m.group(1)), int(m.group(2)), float(m.group(3)))
+            for m in re.finditer(r"^epoch \d+: loss=(\S+) alive=(\d+) .*"
+                                 r"px/s=(\S+)M", text, re.M)]
+    if len(rows) != epochs or not all(math.isfinite(r[0]) for r in rows):
+        raise AssertionError(f"epoch lines {rows}")
+    return rows
+
+
+def check_outputs(out_dir: str, epochs: int, n_expected: int) -> int:
+    from edgegaussians_tpu_torch.io.ply import read_gaussian_params_from_ply
+    pos, _, _, opac = read_gaussian_params_from_ply(
         os.path.join(out_dir, "gaussians_all.ply"))
-    n_expected = cfg["model"]["init_min_num_gaussians"]
     if pos.shape != (n_expected, 3) or not np.isfinite(pos).all() \
             or not np.isfinite(opac).all():
-        raise AssertionError(f"gaussians_all.ply holds {pos.shape}")
-    for name in ("time.txt", f"epoch{EPOCHS - 1}.npz"):
+        raise AssertionError(f"gaussians_all.ply holds {pos.shape}, "
+                             f"expected {n_expected} alive Gaussians")
+    for name in ("time.txt", f"epoch{epochs - 1}.npz"):
         if not os.path.exists(os.path.join(out_dir, name)):
             raise AssertionError(f"{name} missing")
-    log(f"main path ok: losses={losses} launches={launches} "
-        f"ply={pos.shape[0]} Gaussians")
-    return launches
+    return pos.shape[0]
+
+
+def phase_main_path(tmp: str, scan: str, profile_dir=None):
+    log(f"== phase 3: main path, {EPOCHS} epochs of ABC_DexiNed on a "
+        f"{VIEWS}-view 800x800 synthetic scan")
+    text, launches, out_dir = train_cli_run(tmp, scan, EPOCHS, "seg",
+                                            profile_dir)
+    rows = epoch_lines(text, EPOCHS)
+    expected = {"segpair_fwd": EPOCHS * VIEWS, "segpair_bwd": EPOCHS * VIEWS,
+                "raster_v2_fwd": 0, "raster_v2_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"launches {launches} on the seg main path, "
+                             f"expected {expected}")
+    with open(RECIPE) as f:
+        n_seed = json.load(f)["model"]["init_min_num_gaussians"]
+    n = check_outputs(out_dir, EPOCHS, n_seed)
+    log(f"main path ok: losses={[r[0] for r in rows]} launches={launches} "
+        f"ply={n} Gaussians")
+    return launches, [r[2] for r in rows[1:]]
+
+
+def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
+    log(f"== phase 4: fallback path, {FALLBACK_EPOCHS} epochs of "
+        f"ABC_DexiNed on the same scan; cuts: tile_pair_budget="
+        f"{FALLBACK_BUDGET} (epoch 0 overflows), "
+        f"dup_high_pos_grads_at_epoch=[{DUP_EPOCH}]")
+    text, launches, out_dir = train_cli_run(
+        tmp, scan, FALLBACK_EPOCHS, "fallback", profile_dir,
+        tile_pair_budget=FALLBACK_BUDGET,
+        dup_high_pos_grads_at_epoch=[DUP_EPOCH])
+    rows = epoch_lines(text, FALLBACK_EPOCHS)
+    warn = re.findall(r"^WARNING: epoch (\d+): .*switching to the dense "
+                      r"frame path", text, re.M)
+    if warn != ["0"]:
+        raise AssertionError(f"fallback warnings for epochs {warn}, "
+                             "expected one after epoch 0")
+    dense = 2 * VIEWS * (FALLBACK_EPOCHS - 1)
+    expected = {"segpair_fwd": VIEWS, "segpair_bwd": VIEWS,
+                "raster_v2_fwd": dense, "raster_v2_bwd": dense}
+    if launches != expected:
+        raise AssertionError(f"launches {launches} on the fallback path, "
+                             f"expected {expected}")
+    alive = [r[1] for r in rows]
+    # an epoch line reports alive before that epoch's density event
+    if not alive[DUP_EPOCH + 1] > alive[DUP_EPOCH] == alive[0]:
+        raise AssertionError(f"alive per epoch {alive}: no growth at the "
+                             f"duplication of epoch {DUP_EPOCH}")
+    with np.load(os.path.join(out_dir,
+                              f"epoch{FALLBACK_EPOCHS - 1}.npz")) as ck:
+        n_alive = int(ck["f:.gaussians.alive"].sum())
+    n = check_outputs(out_dir, FALLBACK_EPOCHS, n_alive)
+    log(f"fallback path ok: losses={[r[0] for r in rows]} alive={alive} "
+        f"launches={launches} ply={n} Gaussians")
+    return launches, [r[2] for r in rows[1:]]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile_dir", default=None,
+                    help="also trace epoch 2 of phases 3 and 4 here")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     card = phase_environment()
-    err, ms = phase_kernels(device)
+    err, ms, bounds = phase_kernels(device)
+    err_d, ms_d, bounds_d = phase_dense_kernels(device)
+    err.update(err_d)
+    ms.update(ms_d)
+    bounds.update(bounds_d)
     phase_whole_path(device)
+    from edgegaussians_tpu_torch.data.synthetic import generate_scene
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(tmp)
-    from edgegaussians_tpu_torch.ops import segpair
-    replaces = {
-        "segpair_fwd": "edgegaussians_tpu/ops/pallas_segpair.py:277",
-        "segpair_bwd": "edgegaussians_tpu/ops/pallas_segpair.py:345",
-    }
-    kernels = [{"name": name, "route": "cuda",
-                "source": segpair.KERNEL_SOURCE,
-                "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": err[name], "ms": ms[name][0],
-                "plain_ms": ms[name][1]} for name in replaces]
-    log(card)
+        scan = "synth0"
+        t0 = time.time()
+        generate_scene(tmp, scan, seed=0, n_views=VIEWS, width=800,
+                       height=800)
+        log(f"scan generated in {time.time() - t0:.1f}s")
+        seg_launches, seg_pxs = phase_main_path(tmp, scan,
+                                                args.profile_dir)
+        dense_launches, dense_pxs = phase_fallback_path(tmp, scan,
+                                                        args.profile_dir)
+    log(f"steady epochs (epoch >= 1): seg path {seg_pxs} Mpx/s; fallback "
+        f"run, dense two-level path {dense_pxs} Mpx/s")
+    from edgegaussians_tpu_torch.ops import raster_v2, segpair
+    kernels = []
+    for name, source, replaces, launches in (
+            ("segpair_fwd", segpair.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_segpair.py:277", seg_launches),
+            ("segpair_bwd", segpair.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_segpair.py:345", seg_launches),
+            ("raster_v2_fwd", raster_v2.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_raster_v2.py:94", dense_launches),
+            ("raster_v2_bwd", raster_v2.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_raster_v2.py:146",
+             dense_launches)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms[name][0],
+            "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
+    log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

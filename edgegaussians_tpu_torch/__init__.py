@@ -2,9 +2,11 @@
 
 The port of ``edgegaussians_tpu`` (the JAX package, which stays the
 reference) to PyTorch on an NVIDIA H100. Module names mirror the JAX
-package so each module's counterpart is easy to find. The NumPy-only
-modules of the JAX package (``config``, ``cameras``, ``data``, ``io``,
-``extract``, ``eval``, ``native``) are reused by import, never copied.
+package so each module's counterpart is easy to find. The port imports
+nothing of the JAX package: the NumPy-only modules it needs (``config``,
+``cameras``, ``io.ply``, ``io.colmap``, ``data.parsers``,
+``data.seed_points``, ``data.synthetic``) are copies of their JAX-package
+namesakes, held equal to them by tests/test_torch_common.py.
 
 Two backends:
 

@@ -21,9 +21,9 @@ import time
 
 import numpy as np
 
-from edgegaussians_tpu.cameras import max_pairwise_center_distance
-from edgegaussians_tpu.config import load_config
-from edgegaussians_tpu.data import parsers, seed_points as seeds_mod
+from edgegaussians_tpu_torch.cameras import max_pairwise_center_distance
+from edgegaussians_tpu_torch.config import load_config
+from edgegaussians_tpu_torch.data import parsers, seed_points as seeds_mod
 from edgegaussians_tpu_torch import backend_device, resolve_backend
 from edgegaussians_tpu_torch.models.gaussians import export_as_ply
 from edgegaussians_tpu_torch.train import trainer

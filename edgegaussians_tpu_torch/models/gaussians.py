@@ -16,9 +16,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from edgegaussians_tpu.config import ModelConfig, resolve_capacity
-from edgegaussians_tpu.data.seed_points import random_quats
-from edgegaussians_tpu.io import ply as ply_io
+from edgegaussians_tpu_torch.config import ModelConfig, resolve_capacity
+from edgegaussians_tpu_torch.data.seed_points import random_quats
+from edgegaussians_tpu_torch.io import ply as ply_io
 from edgegaussians_tpu_torch.ops.rasterize import RenderResult, rasterize
 
 GROUPS = ("means", "scales", "quats", "opacities")
@@ -93,20 +93,16 @@ def linear_opacities(model: GaussianModel) -> torch.Tensor:
 
 def render_view(model: GaussianModel, viewmat: torch.Tensor,
                 K: torch.Tensor, width: int, height: int, *,
-                tile_size: int = 16, capacity: int = 512,
-                pair_budget: int = 0, pair_kernel="seg",
-                max_tiles_per_gaussian: int = 64, antialiased: bool = True,
-                absgrad_sink: Optional[torch.Tensor] = None) -> RenderResult:
+                absgrad_sink: Optional[torch.Tensor] = None,
+                **render_kwargs) -> RenderResult:
     """Render one camera (edge_gs.py:197-286), applying the exp/sigmoid
-    reparameterizations at the rasterizer boundary (edge_gs.py:253-254)."""
+    reparameterizations at the rasterizer boundary (edge_gs.py:253-254).
+    ``render_kwargs`` are :func:`~edgegaussians_tpu_torch.ops.rasterize.
+    rasterize`'s tile settings."""
     return rasterize(
         model.means, model.quats, linear_scales(model),
         linear_opacities(model), viewmat, K, width, height,
-        tile_size=tile_size, capacity=capacity, pair_budget=pair_budget,
-        pair_kernel=pair_kernel,
-        max_tiles_per_gaussian=max_tiles_per_gaussian,
-        antialiased=antialiased, alive=model.alive,
-        absgrad_sink=absgrad_sink)
+        alive=model.alive, absgrad_sink=absgrad_sink, **render_kwargs)
 
 
 def export_as_ply(model: GaussianModel, ply_path: str) -> int:

@@ -71,3 +71,14 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def launch(lib: str, fn_name: str, argtypes, args) -> None:
+    """Call the C entry ``fn_name`` of ``csrc/<lib>.cu``, which launches
+    its kernel and returns cudaGetLastError(); raise unless that is 0."""
+    fn = getattr(load(lib), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")

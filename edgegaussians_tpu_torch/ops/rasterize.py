@@ -1,18 +1,28 @@
-"""Differentiable tile-based Gaussian rasterization, seg pair path.
+"""Differentiable tile-based Gaussian rasterization.
 
 Counterpart of ``edgegaussians_tpu/ops/rasterize.py``. One call renders one
 camera's edge-intensity image and backpropagates to means / quats /
 scales / opacities, with the gsplat 'antialiased' opacity compensation and
 the absgrad signal:
 
-    project (autograd) -> bin pairs (no grad) -> SegpairRender
+    project (autograd) -> bin (no grad) -> composite (autograd.Function)
     -> frame order to tile order -> assemble [H, W]
 
-Only the branch the shipped recipes run is ported: ``pair_kernel="seg"``
-with a pair budget. Every other branch raises, naming its ROADMAP item;
-an unknown ``pair_kernel`` value raises too (the JAX package falls
-through to the v4 kernel there). Colours are implicitly all-ones, so the
-rendered intensity is the accumulated alpha.
+The dispatch of rasterize.py:156-222, three paths:
+
+- ``pair_kernel="seg"`` with a pair budget: the seg pair path
+  (``SegpairRender``), what the shipped recipes start on;
+- ``0 < dense_capacity < capacity``: the dense two-level frame
+  (``TileRenderTwoLevel``), where the recipes' 'fallback' overflow
+  action goes;
+- otherwise: the dense single-level frame (``TileRender``).
+
+Two branches are not ported and raise, naming their ROADMAP item: the v4
+block-window pair kernel (``pair_kernel=True`` with a budget) and the
+two-level frame's pair-prefix tables (a pair budget with the pair kernel
+off); band mode raises too. An unknown ``pair_kernel`` value raises (the
+JAX package falls through to the v4 kernel there). Colours are implicitly
+all-ones, so the rendered intensity is the accumulated alpha.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from edgegaussians_tpu_torch.ops import tiles as tiles_mod
+from edgegaussians_tpu_torch.ops.composite import (
+    TileRender, TileRenderTwoLevel)
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.segpair import SegpairRender
 from edgegaussians_tpu_torch.ops.tiles import (
@@ -34,8 +46,9 @@ class RenderResult(NamedTuple):
     num_visible: torch.Tensor    # scalar: Gaussians surviving projection
     num_truncated: torch.Tensor  # scalar: Gaussians whose tile footprint
                                  # exceeded max_tiles_per_gaussian
-    num_pairs: torch.Tensor      # scalar: true (tile, Gaussian) pair count;
-                                 # pairs past pair_budget are dropped
+    num_pairs: torch.Tensor      # scalar: true (tile, Gaussian) pair count
+                                 # (the seg path drops pairs past
+                                 # pair_budget)
 
 
 def rasterize(
@@ -51,8 +64,11 @@ def rasterize(
     tile_size: int = 16,
     capacity: int = 512,
     max_tiles_per_gaussian: int = 64,
+    dense_capacity: int = 0,
+    overflow_tiles: int = 0,
     pair_budget: int = 0,
     pair_kernel="seg",
+    occupancy_sort: bool = False,
     antialiased: bool = True,
     near_plane: float = 0.01,
     far_plane: float = 1e10,
@@ -71,9 +87,11 @@ def rasterize(
     packed = tiles_mod.pack_gaussian_render_data(proj)    # [N,8]
     return rasterize_packed(
         proj, packed, width, height, tile_size=tile_size,
-        capacity=capacity, pair_budget=pair_budget,
+        capacity=capacity, dense_capacity=dense_capacity,
+        overflow_tiles=overflow_tiles, pair_budget=pair_budget,
         max_tiles_per_gaussian=max_tiles_per_gaussian,
-        pair_kernel=pair_kernel, absgrad_sink=absgrad_sink,
+        pair_kernel=pair_kernel, occupancy_sort=occupancy_sort,
+        absgrad_sink=absgrad_sink,
         band_row0=band_row0, band_tile_rows=band_tile_rows)
 
 
@@ -85,9 +103,12 @@ def rasterize_packed(
     *,
     tile_size: int = 16,
     capacity: int = 512,
+    dense_capacity: int = 0,        # 0 = single-level; else two-level k1
+    overflow_tiles: int = 0,        # 0 = auto max(T//4, 8) level-2 tiles
     pair_budget: int = 0,
     max_tiles_per_gaussian: int = 64,
     pair_kernel="seg",
+    occupancy_sort: bool = False,
     absgrad_sink: Optional[torch.Tensor] = None,
     band_row0=None,
     band_tile_rows: Optional[int] = None,
@@ -97,17 +118,14 @@ def rasterize_packed(
         raise NotImplementedError(
             "band mode (tile-row sharded rendering) is not ported yet: "
             "ROADMAP Queue 1 #12 (parallel/)")
-    if pair_kernel is True or pair_kernel == "block":
+    if pair_kernel not in (False, 0, None, True, "block", "seg"):
+        raise ValueError(f"unknown pair_kernel {pair_kernel!r} "
+                         "(expected 'seg', True/'block' or False)")
+    pair_path = bool(pair_kernel) and pair_budget > 0
+    if pair_path and pair_kernel != "seg":
         raise NotImplementedError(
             "pair_kernel=True selects the v4 block-window compositor, not "
             "ported yet: ROADMAP Queue 2 #4")
-    if pair_kernel not in (False, 0, "seg"):
-        raise ValueError(f"unknown pair_kernel {pair_kernel!r} "
-                         "(expected 'seg', True/'block' or False)")
-    if pair_kernel != "seg" or pair_budget <= 0:
-        raise NotImplementedError(
-            "the dense / two-level frame path (pair_kernel off or "
-            "pair_budget 0) is not ported yet: ROADMAP Queue 1 #10")
 
     n = packed.shape[0]
     dev = packed.device
@@ -115,19 +133,46 @@ def rasterize_packed(
     basis = pixel_basis(tile_size, device=dev)
     if absgrad_sink is None:
         absgrad_sink = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    num_tiles = tiles_mod.tile_grid(width, height, tile_size)[2]
     capacity = min(capacity, n) if n > 0 else capacity
+    two_level = 0 < dense_capacity < capacity
+    if not pair_path and two_level and pair_budget > 0:
+        raise NotImplementedError(
+            "the two-level frame's pair-prefix tables (a pair budget with "
+            "the pair kernel off) are not ported yet: ROADMAP Queue 1 #14")
 
-    pbins = tiles_mod.bin_pairs_frame_order(
-        proj, width, height, tile_size, capacity, pair_budget,
-        max_tiles_per_gaussian=max_tiles_per_gaussian)
-    packed_sorted = packed[pbins.order]
-    img_f = SegpairRender.apply(packed_sorted, pbins, origins, basis,
-                                absgrad_sink)
+    if pair_path:
+        bins = tiles_mod.bin_pairs_frame_order(
+            proj, width, height, tile_size, capacity, pair_budget,
+            max_tiles_per_gaussian=max_tiles_per_gaussian)
+        img_f = SegpairRender.apply(packed[bins.order], bins, origins,
+                                    basis, absgrad_sink)
+        perm, counts, num_pairs = bins.perm, bins.counts, bins.num_pairs
+    elif two_level:
+        t2 = min(overflow_tiles or max(num_tiles // 4, 8), num_tiles)
+        bins = tiles_mod.bin_gaussians_two_level(
+            proj, width, height, tile_size, dense_capacity,
+            capacity - dense_capacity, t2,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            occupancy_sort=occupancy_sort)
+        perm = bins.tile_perm
+        img_f = TileRenderTwoLevel.apply(
+            packed[bins.order], bins,
+            origins if perm is None else origins[perm], basis, absgrad_sink)
+        counts, num_pairs = bins.counts, bins.num_pairs
+    else:
+        bins = tiles_mod.bin_gaussians(
+            proj, width, height, tile_size, capacity,
+            max_tiles_per_gaussian=max_tiles_per_gaussian)
+        img_f = TileRender.apply(packed[bins.order], bins, origins, basis,
+                                 absgrad_sink)
+        perm, counts, num_pairs = None, bins.counts, bins.counts.sum()
     # frame order -> tile order (autograd turns this into the gather)
-    tile_imgs = torch.zeros_like(img_f).index_copy(0, pbins.perm, img_f)
+    tile_imgs = img_f if perm is None else \
+        torch.zeros_like(img_f).index_copy(0, perm, img_f)
     image = assemble_image(tile_imgs, width, height, tile_size)
     return RenderResult(
-        image=image, tile_counts=pbins.counts,
+        image=image, tile_counts=counts,
         num_visible=proj.valid.sum(),
-        num_truncated=pbins.num_truncated,
-        num_pairs=pbins.num_pairs)
+        num_truncated=bins.num_truncated,
+        num_pairs=num_pairs)

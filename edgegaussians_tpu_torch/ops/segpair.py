@@ -84,7 +84,9 @@ def build_pair_features_vjp(src8: torch.Tensor, ox: torch.Tensor,
     return torch.stack([da, db, dc, dmx, dmy, dlo, z, z], dim=-1)
 
 
-def _check(name, x, dtype, shape):
+def check_tensor(name, x, dtype, shape, device):
+    """Raise unless ``x`` has the dtype, shape, contiguity and device a
+    kernel takes."""
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -92,33 +94,25 @@ def _check(name, x, dtype, shape):
                          f"got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"all inputs must be on {device}, "
+                         f"got {name} on {x.device}")
 
 
 def _check_inputs(feats, s_f, basis, device, gt=None):
     T = s_f.shape[0] - 1
-    _check("feats", feats, torch.float32, (feats.shape[0], 8))
-    _check("s_f", s_f, torch.int32, (T + 1,))
-    _check("basis", basis, torch.float32, (8, PIXELS))
-    tensors = [feats, s_f, basis]
+    check_tensor("feats", feats, torch.float32, (feats.shape[0], 8), device)
+    check_tensor("s_f", s_f, torch.int32, (T + 1,), device)
+    check_tensor("basis", basis, torch.float32, (8, PIXELS), device)
     if gt is not None:
-        _check("gt", gt, torch.float32, (T, PIXELS))
-        tensors.append(gt)
-    for x in tensors:
-        if x.device != device:
-            raise ValueError(f"all inputs must be on {device}, "
-                             f"got one on {x.device}")
+        check_tensor("gt", gt, torch.float32, (T, PIXELS), device)
     return T
 
 
 def _launch(name, *args):
     from edgegaussians_tpu_torch.ops import _build
-    fn = getattr(_build.load("segpair"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (len(args) - 2)
-                   + [ctypes.c_int, ctypes.c_void_p])
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _build.launch("segpair", name, [ctypes.c_void_p] * (len(args) - 2)
+                  + [ctypes.c_int, ctypes.c_void_p], args)
     launch_counts[name] += 1
 
 

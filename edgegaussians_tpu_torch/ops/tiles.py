@@ -1,9 +1,13 @@
-"""Tile binning and screen-space feature construction (pair subset).
+"""Tile binning and screen-space feature construction.
 
 Counterpart of the parts of ``edgegaussians_tpu/ops/tiles.py`` that the
-seg pair path runs: the fused-key sort (``_sort_pairs``), the frame-ordered
-pair tables (``bin_pairs_frame_order`` with ``block_tiles=0``), and the
-pixel basis, tile origins, packed render rows and image assembly.
+port's render paths run: the fused-key sort (``_sort_pairs``), the
+frame-ordered pair tables of the seg path (``bin_pairs_frame_order`` with
+``block_tiles=0``), the dense per-tile slot lists of the single-level
+(``bin_gaussians``) and two-level (``bin_gaussians_two_level`` with
+``pair_budget=0``) frame paths, the per-slot features
+(``build_tile_features``), and the pixel basis, tile origins, packed render
+rows and image assembly.
 
 Pixel evaluation is a depth-8 contraction: for conic (a,b,c), centre
 (mx,my) in TILE-LOCAL pixel coordinates and log-opacity lo,
@@ -20,7 +24,7 @@ decode with a plain index (not the one-hot row gather).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,6 +47,36 @@ def tile_grid(width: int, height: int, tile_size: int):
     """(tiles_x, tiles_y, num_tiles)."""
     ntx, nty = cdiv(width, tile_size), cdiv(height, tile_size)
     return ntx, nty, ntx * nty
+
+
+class TileBins(NamedTuple):
+    """Depth-ordered per-tile slot lists of the single-level frame path:
+    slot k of tile t holds the depth rank of the tile's k-th nearest
+    Gaussian (tiles.py:40-55). Index tensors are int64."""
+    ranks: torch.Tensor          # [T,K] depth ranks (clipped; any rank
+                                 # where the slot is invalid)
+    valid: torch.Tensor          # [T,K] bool: k < counts[t]
+    counts: torch.Tensor         # [T] true per-tile occupancy
+    order: torch.Tensor          # [N] depth rank -> Gaussian id
+    num_truncated: torch.Tensor  # scalar (see PairBins)
+
+
+class TileBinsTwoLevel(NamedTuple):
+    """Two-level slot lists (tiles.py:58-90, the ``pair_budget=0`` form):
+    every tile's first k1 slots, plus k2 more slots for the ``t2``
+    busiest tiles. Frame rows are tile order, or descending occupancy
+    under ``tile_perm`` (then the overflow tiles are frame rows [0, t2)).
+    """
+    ranks1: torch.Tensor         # [T,k1] depth ranks, FRAME row order
+    counts: torch.Tensor         # [T] true per-tile occupancy (tile order)
+    counts1: torch.Tensor        # [T] min(counts, k1), FRAME row order
+    ovf_ids: torch.Tensor        # [t2] busiest tile ids (descending count)
+    counts2: torch.Tensor        # [t2] clip(counts[ovf] - k1, 0, k2)
+    ranks2: torch.Tensor         # [t2,k2] depth ranks
+    order: torch.Tensor          # [N] depth rank -> Gaussian id
+    num_truncated: torch.Tensor  # scalar (see PairBins)
+    num_pairs: torch.Tensor      # scalar: true (tile, Gaussian) pair count
+    tile_perm: Optional[torch.Tensor]  # [T] frame row -> tile id, or None
 
 
 class PairBins(NamedTuple):
@@ -165,6 +199,95 @@ def bin_pairs_frame_order(proj: ProjectedGaussians, width: int, height: int,
         pair_ranks=ranks, pair_valid=pair_valid, s_f=s_f, counts_f=kept_f,
         perm=perm, order=order, counts=counts, num_pairs=starts[-1],
         num_truncated=num_trunc)
+
+
+def _decode_ranks(sorted_keys: torch.Tensor, gidx: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Depth ranks at sorted-pair positions ``gidx`` (tiles.py:594-607):
+    a plain clipped index. Positions past the end read the INVALID_KEY
+    padding the JAX version's 8-wide rows add, so even invalid slots
+    decode to the same (clipped) rank on both sides."""
+    pad = (-sorted_keys.shape[0]) % 8
+    if pad:
+        sorted_keys = torch.cat([sorted_keys, sorted_keys.new_full(
+            (pad,), INVALID_KEY)])
+    gidx = torch.clamp(gidx, 0, sorted_keys.shape[0] - 1)
+    return torch.clamp(sorted_keys[gidx] & RANK_MASK, 0,
+                       max(n - 1, 0)).to(torch.int64)
+
+
+@torch.no_grad()
+def bin_gaussians(proj: ProjectedGaussians, width: int, height: int,
+                  tile_size: int, capacity: int,
+                  max_tiles_per_gaussian: int = MAX_TILES_PER_GAUSSIAN
+                  ) -> TileBins:
+    """Fixed-capacity per-tile lists (tiles.py:110-142): tiles past
+    ``capacity`` keep their nearest ``capacity`` Gaussians; ``counts``
+    keeps the true occupancy."""
+    n = proj.depths.shape[0]
+    capacity = min(capacity, n) if n > 0 else capacity
+    sorted_keys, starts, counts, order, num_trunc = _sort_pairs(
+        proj, width, height, tile_size, max_tiles_per_gaussian)
+    kk = torch.arange(capacity, device=starts.device)[None, :]
+    ranks = _decode_ranks(sorted_keys, starts[:-1, None] + kk, n)
+    return TileBins(ranks=ranks, valid=kk < counts[:, None], counts=counts,
+                    order=order, num_truncated=num_trunc)
+
+
+@torch.no_grad()
+def bin_gaussians_two_level(
+        proj: ProjectedGaussians, width: int, height: int, tile_size: int,
+        k1: int, k2: int, t2: int,
+        max_tiles_per_gaussian: int = MAX_TILES_PER_GAUSSIAN,
+        occupancy_sort: bool = False) -> TileBinsTwoLevel:
+    """Two-level lists (tiles.py:148-219, ``pair_budget=0``): k1 slots
+    for every tile and k2 more for the ``t2`` busiest, decoded straight
+    from the sorted keys at ``starts[ovf] + k1``.
+
+    The busiest tiles are those of the descending-count stable sort (ties
+    by tile id, as ``lax.top_k`` and ``lax.sort_key_val`` break them);
+    ``occupancy_sort`` also orders the frame rows that way.
+    """
+    n = proj.depths.shape[0]
+    sorted_keys, starts, counts, order, num_trunc = _sort_pairs(
+        proj, width, height, tile_size, max_tiles_per_gaussian)
+    by_count = torch.sort(-counts, stable=True).indices
+    ovf_ids = by_count[:t2]
+    perm = by_count if occupancy_sort else None
+    starts_f = starts[:-1] if perm is None else starts[:-1][perm]
+    counts_f = counts if perm is None else counts[perm]
+    dev = starts.device
+    kk1 = torch.arange(k1, device=dev)[None, :]
+    kk2 = torch.arange(k2, device=dev)[None, :]
+    starts2 = starts[:-1][ovf_ids] + k1
+    return TileBinsTwoLevel(
+        ranks1=_decode_ranks(sorted_keys, starts_f[:, None] + kk1, n),
+        counts=counts, counts1=torch.clamp(counts_f, max=k1),
+        ovf_ids=ovf_ids,
+        counts2=torch.clamp(counts[ovf_ids] - k1, 0, k2),
+        ranks2=_decode_ranks(sorted_keys, starts2[:, None] + kk2, n),
+        order=order, num_truncated=num_trunc, num_pairs=starts[-1],
+        tile_perm=perm)
+
+
+def build_tile_features(gathered: torch.Tensor, origins: torch.Tensor,
+                        slot_validf: torch.Tensor) -> torch.Tensor:
+    """[T,K,8] gathered packed rows -> [T,K,8] features G (tiles.py:
+    647-672): the pair features of ops/segpair.py per slot, with the
+    constant term forced to -1e30 on invalid slots (slot past the count,
+    or an invalid Gaussian) so their alpha is exactly 0."""
+    a, b, c = gathered[..., 0], gathered[..., 1], gathered[..., 2]
+    mx = gathered[..., 3] - origins[:, None, 0]
+    my = gathered[..., 4] - origins[:, None, 1]
+    lo = gathered[..., 5]
+    validf = slot_validf * gathered[..., 6]
+    amx_bmy = a * mx + b * my
+    bmx_cmy = b * mx + c * my
+    const = -0.5 * (amx_bmy * mx + bmx_cmy * my) + lo
+    const = torch.where(validf > 0, const, torch.full_like(const, -1e30))
+    z = torch.zeros_like(a)
+    return torch.stack([-0.5 * a, -b, -0.5 * c, amx_bmy, bmx_cmy, const,
+                        lo, z], dim=-1)
 
 
 def tile_origins(width: int, height: int, tile_size: int,

@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from edgegaussians_tpu.config import OptimConfig, OptimGroupConfig
+from edgegaussians_tpu_torch.config import OptimConfig, OptimGroupConfig
 from edgegaussians_tpu_torch.models.gaussians import GROUPS, GaussianModel
 
 ADAM_B1 = 0.9

@@ -4,37 +4,39 @@ Counterpart of ``edgegaussians_tpu/train/trainer.py`` for the part of the
 reference training loop (train_gaussians.py:17-222) that the ported slice
 runs: one Adam step per view in a shuffled view order, with the
 projection loss's strategy chosen per render (train_gaussians.py:73-77),
-absgrad accumulated after every backward (edge_gs.py:607-613), the
-pair-overflow watermark, checkpoints in the JAX ``.npz`` key layout, and
-the JAX trainer's epoch log line.
+absgrad accumulated after every backward (edge_gs.py:607-613), density
+control at its scheduled epochs, the pair-overflow watermark with its
+warn, error and fallback actions, checkpoints in the JAX ``.npz`` key
+layout, and the JAX trainer's epoch log line.
 
 Not ported yet, and refused up front by :func:`train` when the schedule
-would reach them within ``num_epochs``: density control (ROADMAP Queue 1
-#7), the direction and ratio losses with their kNN (Queue 1 #6), staged
-capacity (Queue 1 #8) and the view-batch step mode (Queue 1 #12). The
-dense frame path that the 'fallback' overflow action switches to is
-Queue 1 #10.
+would reach them within ``num_epochs``: the direction and ratio losses
+with their kNN (ROADMAP Queue 1 #6), a wayward cull with
+``cull_wayward_apply`` (its kNN too), staged capacity (Queue 1 #8) and
+the view-batch step mode (Queue 1 #12).
 
 Random draws come from one CPU ``torch.Generator`` seeded with the
 training seed: the per-epoch view permutation (injectable through
-``view_orders``) and the bg_edge_ratio scores. Torch cannot reproduce
-JAX's PRNG streams, so runs agree with the JAX trainer in distribution,
-and step-level tests inject the JAX draws.
+``view_orders``), the bg_edge_ratio scores and the duplication noise
+(injectable through ``density_noise``). Torch cannot reproduce JAX's PRNG
+streams, so runs agree with the JAX trainer in distribution, and
+step-level tests inject the JAX draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from edgegaussians_tpu.config import FrameworkConfig
+from edgegaussians_tpu_torch.config import FrameworkConfig
 from edgegaussians_tpu_torch import backend_device, resolve_backend
-from edgegaussians_tpu_torch.models import losses
+from edgegaussians_tpu_torch.models import density, losses
 from edgegaussians_tpu_torch.models.gaussians import (
     GROUPS, GaussianModel, init_state, render_view)
 from edgegaussians_tpu_torch.ops.tiles import tile_grid
@@ -91,7 +93,10 @@ def make_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int):
     pl_cfg = cfg.training.loss.projection_losses
     render_kwargs = dict(
         tile_size=mcfg.tile_size, capacity=mcfg.tile_gaussian_capacity,
+        dense_capacity=mcfg.tile_dense_capacity,
+        overflow_tiles=mcfg.tile_overflow_tiles,
         pair_budget=mcfg.tile_pair_budget,
+        occupancy_sort=mcfg.tile_occupancy_sort,
         pair_kernel=mcfg.tile_pair_kernel,
         max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
         antialiased=(mcfg.rasterize_mode == "antialiased"))
@@ -225,11 +230,13 @@ def check_schedule_is_ported(cfg: FrameworkConfig) -> None:
     ``num_epochs``, something the port does not have yet."""
     n = cfg.training.num_epochs
     ol = cfg.training.loss.orientation_losses
-    for epoch in range(n):
-        if density_flags(epoch, cfg).any():
-            raise NotImplementedError(
-                f"density control fires at epoch {epoch} within "
-                f"num_epochs={n}; it is not ported yet (ROADMAP Queue 1 #7)")
+    if cfg.model.cull_wayward_apply:
+        for epoch in range(n):
+            if density_flags(epoch, cfg)[3]:
+                raise NotImplementedError(
+                    f"the wayward cull fires at epoch {epoch} with "
+                    "cull_wayward_apply set; its kNN is not ported yet "
+                    "(ROADMAP Queue 1 #6)")
     # the losses apply at epochs > their start epoch (trainer.py:309-310)
     if n - 1 > ol.start_dir_loss_at_epoch:
         raise NotImplementedError(
@@ -260,13 +267,42 @@ def init_train_state(seed_points: np.ndarray, cfg: FrameworkConfig,
                       generator=generator, seed=cfg.training.seed)
 
 
+def run_density_control(state: TrainState, epoch: int, cfg: FrameworkConfig,
+                        viewmats, Ks, edge_masks,
+                        noise: Optional[torch.Tensor] = None) -> bool:
+    """Epoch-scheduled densify/cull dispatch (trainer.py:352-427), in
+    place on ``state``; returns whether anything fired. An event resets
+    absgrads. ``noise`` replaces the duplication's draw from
+    ``state.generator``."""
+    flags = density_flags(epoch, cfg)
+    if not flags.any():
+        return False
+    m, mcfg = state.model, cfg.model
+    if flags[0]:
+        density.duplicate_high_pos_gradients(
+            m, state.opt, mcfg, noise=noise, generator=state.generator)
+    if flags[1]:
+        density.cull_not_projecting(m, mcfg, viewmats, Ks, edge_masks)
+    if flags[2]:
+        density.cull_low_opacity(m, mcfg)
+    if flags[3]:
+        density.cull_wayward(m, mcfg)
+    if flags[4]:
+        density.reset_opacities(m, mcfg.reset_opacity_value)
+    m.absgrads.zero_()
+    m.absgrad_count.fill_(1.0)
+    return True
+
+
 def _pair_overflow(epoch: int, stats: EpochStats, cfg: FrameworkConfig,
-                   log_fn) -> None:
+                   log_fn) -> bool:
     """The pair-overflow watermark (trainer.py:705-740): a render whose
-    pair count exceeded tile_pair_budget dropped pairs."""
+    pair count exceeded tile_pair_budget dropped pairs. Returns True when
+    the run must switch to the dense frame path ('fallback'); the
+    overflowed epoch itself stays truncated."""
     budget = cfg.model.tile_pair_budget
     if stats.max_pairs <= budget:
-        return
+        return False
     msg = (f"epoch {epoch}: {stats.max_pairs} (tile, Gaussian) pairs "
            f"exceed tile_pair_budget={budget}; pairs past the budget were "
            "DROPPED from this epoch's renders")
@@ -275,11 +311,21 @@ def _pair_overflow(epoch: int, stats: EpochStats, cfg: FrameworkConfig,
         raise RuntimeError(msg + " — raise the budget "
                                  "(tile_pair_overflow_action='error')")
     if action == "fallback":
-        raise NotImplementedError(
-            msg + " — tile_pair_overflow_action='fallback' switches to the "
-            "dense frame path, which is not ported yet (ROADMAP Queue 1 "
-            "#10); raise the budget or set 'warn'/'error'")
+        log_fn("WARNING: " + msg + "; switching to the dense frame path "
+               "for the remaining epochs "
+               "(tile_pair_overflow_action='fallback')")
+        return True
     log_fn("WARNING: " + msg + " — raise the budget")
+    return False
+
+
+def _reports_pairs(mcfg, capacity: int) -> bool:
+    """Whether the render path counts pairs: the JAX package sets
+    ``num_pairs`` on the pair and two-level paths only, and its log line
+    prints ``pairs=`` where it is set (trainer.py:699-702)."""
+    cap = min(mcfg.tile_gaussian_capacity, capacity)
+    return ((bool(mcfg.tile_pair_kernel) and mcfg.tile_pair_budget > 0)
+            or 0 < mcfg.tile_dense_capacity < cap)
 
 
 def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
@@ -287,12 +333,15 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
           checkpoint_dir: Optional[str] = None,
           initial_state: Optional[TrainState] = None,
           profile_dir: Optional[str] = None, profile_epochs: int = 1,
-          view_orders: Optional[List[Sequence[int]]] = None) -> TrainState:
+          view_orders: Optional[List[Sequence[int]]] = None,
+          density_noise: Optional[Dict[int, torch.Tensor]] = None
+          ) -> TrainState:
     """Full training run on one scene (train_gaussians.py:144-222).
 
     ``scene`` is a SceneViews. ``view_orders[e]``, when given, replaces
-    epoch e's random view permutation. ``profile_dir`` writes a
-    torch.profiler Chrome trace of epochs [2, 2 + profile_epochs).
+    epoch e's random view permutation, and ``density_noise[e]`` epoch e's
+    duplication noise. ``profile_dir`` writes a torch.profiler Chrome
+    trace of epochs [2, 2 + profile_epochs).
     """
     check_schedule_is_ported(cfg)
     device = backend_device(
@@ -306,6 +355,8 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
     state = initial_state or init_train_state(seed_points, cfg,
                                               device=device)
     proj_grad = make_proj_grad_fn(cfg, scene.width, scene.height)
+    pair_mode = bool(cfg.model.tile_pair_budget)
+    reports_pairs = _reports_pairs(cfg.model, state.model.capacity)
     px_per_epoch = scene.num_views * scene.width * scene.height
     num_tiles = tile_grid(scene.width, scene.height, cfg.model.tile_size)[2]
     ovf_budget = cfg.model.tile_overflow_tiles or max(num_tiles // 4, 8)
@@ -334,6 +385,9 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
             prof = None
             log_fn(f"profiler trace and key_averages.txt written to "
                    f"{profile_dir}")
+        run_density_control(
+            state, epoch, cfg, viewmats, Ks, edge_masks,
+            noise=density_noise.get(epoch) if density_noise else None)
         if epoch % max(cfg.training.log_interval, 1) == 0:
             now = time.time()
             dt = max(now - t_prev, 1e-9)
@@ -343,10 +397,22 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
                    f"max_tile={stats.max_tile_count} "
                    f"ovf={stats.max_overflow_tiles}/{ovf_budget} "
                    f"trunc={stats.max_truncated} "
-                   f"pairs={stats.max_pairs}/{cfg.model.tile_pair_budget} "
-                   f"px/s={px_per_epoch / dt / 1e6:.1f}M "
+                   + (f"pairs={stats.max_pairs}"
+                      + (f"/{cfg.model.tile_pair_budget} "
+                         if cfg.model.tile_pair_budget else " ")
+                      if reports_pairs else "")
+                   + f"px/s={px_per_epoch / dt / 1e6:.1f}M "
                    f"t={now - t0:.1f}s")
-        _pair_overflow(epoch, stats, cfg, log_fn)
+        if pair_mode and _pair_overflow(epoch, stats, cfg, log_fn):
+            # rebuild the step on the dense frame path for the rest of
+            # the run (trainer.py:716-738)
+            dense_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, tile_pair_budget=0))
+            proj_grad = make_proj_grad_fn(dense_cfg, scene.width,
+                                          scene.height)
+            pair_mode = False
+            reports_pairs = _reports_pairs(dense_cfg.model,
+                                           state.model.capacity)
         if (checkpoint_dir and cfg.training.checkpoint_interval
                 and (epoch + 1) % cfg.training.checkpoint_interval == 0):
             save_checkpoint(state, checkpoint_dir, epoch)

@@ -1,9 +1,13 @@
-"""Package-level checks of the PyTorch port: it never loads JAX, its
-backend resolution, and the plain pieces of the slice (losses, Adam
-schedules, model init and PLY round trip, the per-pixel oracle) held to
-the JAX package on the same NumPy inputs.
+"""Package-level checks of the PyTorch port: it never loads JAX or the
+JAX package, its own copies of the JAX package's NumPy modules (config,
+cameras, io, data) stay equal to the originals, its backend resolution,
+and the plain pieces of the slice (losses, Adam schedules, model init and
+PLY round trip, the per-pixel oracle) held to the JAX package on the same
+NumPy inputs.
 """
 
+import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -30,8 +34,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, and chip_smoke.py, import with JAX never
-    loaded: the machine with the GPU has no JAX."""
+    """Every module of the port, and chip_smoke.py, import with neither
+    JAX nor any module of the JAX package loaded: the machine with the
+    GPU has no JAX, and the port keeps its own copies of what it needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import edgegaussians_tpu_torch as p\n"
@@ -39,8 +44,9 @@ def test_port_never_imports_jax():
         "'edgegaussians_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "assert len(names) >= 14, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert len(names) >= 29, names\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'edgegaussians_tpu')\n"
+        "       or m.startswith(('jax.', 'edgegaussians_tpu.'))]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -180,3 +186,85 @@ def test_per_pixel_oracle_matches_jax():
                                 w, h)
     assert float(img_t.max()) > 0.5
     np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=1e-5)
+
+
+def test_config_copy_matches_jax():
+    from edgegaussians_tpu import config as jconfig
+    from edgegaussians_tpu_torch import config
+    paths = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
+    assert len(paths) >= 5
+    for path in paths:
+        assert dataclasses.asdict(config.load_config(path)) == \
+            dataclasses.asdict(jconfig.load_config(path)), path
+
+
+def _scene_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def test_synthetic_copy_writes_the_same_scene_and_parsers_read_it(tmp_path):
+    """generate_scene of both packages from one seed writes the same
+    files (decoded images, point clouds, camera JSON); the parsers, seed
+    points and camera helpers of both read them to equal arrays."""
+    import json
+
+    from PIL import Image
+
+    from edgegaussians_tpu import cameras as jcameras
+    from edgegaussians_tpu.config import config_from_dict as jconfig_from_dict
+    from edgegaussians_tpu.data import parsers as jparsers
+    from edgegaussians_tpu.data import seed_points as jseeds
+    from edgegaussians_tpu.data.synthetic import generate_scene as jgenerate
+    from edgegaussians_tpu.io import ply as jply
+    from edgegaussians_tpu_torch import cameras
+    from edgegaussians_tpu_torch.config import config_from_dict
+    from edgegaussians_tpu_torch.data import parsers, seed_points
+    from edgegaussians_tpu_torch.data.synthetic import generate_scene
+    from edgegaussians_tpu_torch.io import ply
+
+    kw = dict(seed=4, n_views=3, width=40, height=32, n_lines=2, n_curves=1,
+              focal=40.0)
+    generate_scene(str(tmp_path / "port"), "S", **kw)
+    jgenerate(str(tmp_path / "jax"), "S", **kw)
+    files = _scene_files(tmp_path / "port")
+    assert files == _scene_files(tmp_path / "jax") and len(files) > 5
+    for rel in files:
+        a, b = tmp_path / "port" / rel, tmp_path / "jax" / rel
+        if rel.endswith(".png"):
+            np.testing.assert_array_equal(np.asarray(Image.open(a)),
+                                          np.asarray(Image.open(b)), rel)
+        elif rel.endswith(".json"):
+            assert json.loads(a.read_text()) == json.loads(b.read_text()), rel
+        elif rel.endswith(".ply"):
+            np.testing.assert_array_equal(ply.read_point_cloud(str(a)),
+                                          jply.read_point_cloud(str(b)), rel)
+        else:
+            assert a.read_bytes() == b.read_bytes(), rel
+
+    raw = {"data": {"parser_type": "emap", "dataset_name": "ABC",
+                    "base_dir": str(tmp_path / "port" / "data") + "/",
+                    "edge_detection_method": "DexiNed"}}
+    scene = parsers.load_scene(config_from_dict(raw).data, "S")
+    jscene = jparsers.load_scene(jconfig_from_dict(raw).data, "S")
+    for name in ("images", "viewmats", "Ks"):
+        np.testing.assert_array_equal(getattr(scene, name),
+                                      getattr(jscene, name), name)
+    assert (scene.width, scene.height) == (jscene.width, jscene.height)
+    assert cameras.max_pairwise_center_distance(scene.cameras) == \
+        jcameras.max_pairwise_center_distance(jscene.cameras)
+    assert parsers.get_paths_from_data_config(
+        config_from_dict(raw).data, "S") == \
+        jparsers.get_paths_from_data_config(jconfig_from_dict(raw).data, "S")
+    seed_path = str(tmp_path / "port" / "groundtruth" / "sampled_pts" /
+                    "S_0.005.ply")
+    np.testing.assert_array_equal(
+        seed_points.init_seed_points_from_file(
+            seed_path, 500, np.random.default_rng(1)),
+        jseeds.init_seed_points_from_file(
+            seed_path, 500, np.random.default_rng(1)))
+    np.testing.assert_array_equal(
+        seed_points.init_seed_points_random(
+            50, 0.5, 1.1, np.random.default_rng(2)),
+        jseeds.init_seed_points_random(50, 0.5, 1.1,
+                                       np.random.default_rng(2)))

@@ -1,5 +1,5 @@
-"""The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu)
-held to their plain PyTorch versions, on a GPU.
+"""The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu
+and csrc/raster_v2.cu) held to their plain PyTorch versions, on a GPU.
 
 Every test here needs the card and skips where torch sees none. The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -9,17 +9,20 @@ without the JAX-side conftest:
 
 Tolerances: image atol 1e-5 (both sides take the same f32 steps; only
 the order of the log-alpha sum and of the transmittance products
-differs); per-pair dfeats 1e-5 of the plain version's max-abs (warp
-shuffle tree vs matmul reduction over 256 pixels); whole-rasterizer
-gradients atol 3e-4, rtol 2e-3 (tests/test_pallas_segpair.py's seg
-tolerances; the pair rows reach [N,8] through index_add_ atomics).
+differs); per-pair and per-slot dfeats 1e-5 of the plain version's
+max-abs (warp shuffle tree vs matmul reduction over 256 pixels); the
+dense kernels' t_out where the plain value is >= 1e-4 rtol 1e-5, and
+below 1e-4 on both sides elsewhere (its value there depends on the
+implementation, ops/raster_v2.py); whole-rasterizer gradients atol 3e-4,
+rtol 2e-3 (tests/test_pallas_segpair.py's seg tolerances; the pair rows
+reach [N,8] through index_add_ atomics).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from edgegaussians_tpu_torch.ops import segpair, tiles
+from edgegaussians_tpu_torch.ops import raster_v2, segpair, tiles
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.rasterize import rasterize
 
@@ -152,6 +155,138 @@ def test_rasterize_on_gpu_matches_cpu_path(device, name):
 
     names = ("image", "means", "quats", "scales", "opacities", "absgrad")
     for nm, a, b in zip(names, grads(device), grads(torch.device("cpu"))):
+        assert torch.isfinite(a).all(), nm
+        if nm == "image":
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-3, atol=3e-4, msg=nm)
+
+
+def _random_frame(seed, t=16, k=256, counts=(0, 3, 64, 128, 130, 200, 256,
+                                              256)):
+    """Synthetic dense frame [t,k,8] (tests/test_pallas_raster.py's
+    features): counts from empty rows to full ones, a -1e30 constant past
+    each count and on ~10% of the slots below it, a carried transmittance
+    with rows saturated on entry, and a cotangent."""
+    r = np.random.default_rng(seed)
+    a = r.uniform(0.05, 0.8, (t, k))
+    c = r.uniform(0.05, 0.8, (t, k))
+    b = r.uniform(-0.1, 0.1, (t, k)) * np.sqrt(a * c)
+    mx, my = r.uniform(-4.0, 20.0, (2, t, k))
+    logop = np.log(r.uniform(0.05, 0.95, (t, k)))
+    counts = np.resize(np.asarray(counts), t)
+    valid = np.arange(k)[None, :] < counts[:, None]
+    valid &= r.uniform(0, 1, (t, k)) < 0.9
+    amx_bmy = a * mx + b * my
+    bmx_cmy = b * mx + c * my
+    const = -0.5 * (amx_bmy * mx + bmx_cmy * my) + logop
+    const = np.where(valid, const, -1e30)
+    feats = np.stack([-0.5 * a, -b, -0.5 * c, amx_bmy, bmx_cmy, const,
+                      logop, np.zeros_like(a)], axis=-1).astype(np.float32)
+    t_in = r.uniform(0.2, 1.0, (t, 256)).astype(np.float32)
+    t_in[1] = 5e-5
+    t_in[7, :128] = 2e-4
+    g = r.uniform(-1, 1, (t, 256)).astype(np.float32)
+    return feats, counts.astype(np.int32), t_in, g
+
+
+FRAMES = {
+    # level-1 shape: transmittance 1 in, rows up to k
+    "level1": dict(seed=0, t=40, k=128, counts=(0, 5, 60, 128, 127, 90)),
+    # level-2 shape: long rows cross both kernels' staging batches, a
+    # carried t_in, counts past k (the walk stops at k)
+    "level2": dict(seed=1, t=24, k=640, counts=(640, 0, 700, 300, 129, 640,
+                                                 257, 520)),
+}
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_raster_v2_kernels_match_plain_versions(device, name):
+    feats, counts, t_in, g = (torch.from_numpy(x).to(device)
+                              for x in _random_frame(**FRAMES[name]))
+    if name == "level1":
+        t_in = None
+    basis = tiles.pixel_basis(16, device=device)
+    img_k, tout_k = raster_v2.composite_fwd_seg(feats, counts, basis, t_in)
+    torch.cuda.synchronize()
+    img_r, tout_r = raster_v2.composite_fwd_seg_ref(feats, counts, basis,
+                                                    t_in)
+    torch.testing.assert_close(img_k, img_r, rtol=0, atol=1e-5)
+    live = tout_r >= 1e-4
+    torch.testing.assert_close(tout_k[live], tout_r[live], rtol=1e-5,
+                               atol=1e-7)
+    assert bool((tout_k[~live] < 1e-4).all())
+    if t_in is not None:                    # rows saturated on entry
+        assert bool((~live).any())
+
+    total = torch.clamp(img_r + 0.1, max=1.0)
+    d_k = raster_v2.composite_bwd_seg(feats, counts, basis, g, t_in, total)
+    torch.cuda.synchronize()
+    d_r = raster_v2.composite_bwd_seg_ref(feats, counts, basis, g, t_in,
+                                          total)
+    scale = float(d_r.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(d_k, d_r, rtol=0, atol=1e-5 * scale)
+    past = (torch.arange(feats.shape[1], device=device)[None, :]
+            >= counts[:, None])
+    assert bool((d_k[past] == 0).all()) and bool((d_k[..., 6:] == 0).all())
+
+
+def test_raster_v2_wrappers_count_launches_and_check_inputs(device):
+    feats, counts, t_in, g = (torch.from_numpy(x).to(device)
+                              for x in _random_frame(2, t=8, k=128))
+    basis = tiles.pixel_basis(16, device=device)
+    before = dict(raster_v2.launch_counts)
+    img, _ = raster_v2.composite_fwd_seg(feats, counts, basis, t_in)
+    raster_v2.composite_fwd(feats, counts, basis)
+    raster_v2.composite_bwd_seg(feats, counts, basis, g, t_in, img)
+    assert raster_v2.launch_counts["raster_v2_fwd"] == \
+        before["raster_v2_fwd"] + 2
+    assert raster_v2.launch_counts["raster_v2_bwd"] == \
+        before["raster_v2_bwd"] + 1
+    raster_v2.composite_fwd_seg(feats.cpu(), counts.cpu(), basis.cpu())
+    assert raster_v2.launch_counts["raster_v2_fwd"] == \
+        before["raster_v2_fwd"] + 2
+    with pytest.raises(TypeError):
+        raster_v2.composite_fwd_seg(feats.double(), counts, basis)
+    with pytest.raises(TypeError):
+        raster_v2.composite_fwd_seg(feats, counts.long(), basis)
+    with pytest.raises(ValueError):
+        raster_v2.composite_fwd_seg(feats, counts.cpu(), basis)
+    with pytest.raises(ValueError):
+        raster_v2.composite_fwd_seg(feats, counts, basis, t_in[:4])
+    with pytest.raises(ValueError):
+        raster_v2.composite_fwd_seg(feats[:, ::2], counts, basis)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(capacity=64, dense_capacity=16, overflow_tiles=3,
+         occupancy_sort=True),
+    dict(capacity=64, dense_capacity=16, overflow_tiles=4),
+    dict(capacity=48)], ids=["two_level_occ", "two_level", "single"])
+def test_dense_rasterize_on_gpu_matches_cpu_path(device, kw):
+    arrays = _scene(**SCENES["cluster"][0])
+
+    def grads(dev):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        params = [x.requires_grad_() for x in t[:4]]
+        sink = torch.zeros((t[0].shape[0], 2), device=dev,
+                           requires_grad=True)
+        out = rasterize(*params, t[4], t[5], W, H, pair_budget=0,
+                        absgrad_sink=sink, **kw)
+        img = torch.clamp(out.image, 0, 1)
+        w = (torch.arange(img.numel(), device=dev, dtype=torch.float32)
+             .reshape(img.shape) % 7) / 7.0 + 0.3
+        g = torch.autograd.grad((img * w).sum(), params + [sink])
+        return [out.image.detach().cpu()] + [x.cpu() for x in g]
+
+    before = dict(raster_v2.launch_counts)
+    on_gpu = grads(device)
+    levels = 2 if "dense_capacity" in kw else 1
+    for name in ("raster_v2_fwd", "raster_v2_bwd"):
+        assert raster_v2.launch_counts[name] == before[name] + levels
+    names = ("image", "means", "quats", "scales", "opacities", "absgrad")
+    for nm, a, b in zip(names, on_gpu, grads(torch.device("cpu"))):
         assert torch.isfinite(a).all(), nm
         if nm == "image":
             torch.testing.assert_close(a, b, rtol=0, atol=2e-5)

@@ -214,8 +214,11 @@ def test_build_pair_features_vjp_matches_autograd():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(pair_kernel="seg", pair_budget=0), NotImplementedError),
-    (dict(pair_kernel=False, pair_budget=1024), NotImplementedError),
+    # the two-level frame's pair-prefix tables
+    (dict(pair_kernel=False, pair_budget=1024, dense_capacity=4),
+     NotImplementedError),
+    (dict(pair_kernel="seg", pair_budget=0, band_row0=0),
+     NotImplementedError),
     (dict(pair_kernel=True, pair_budget=1024), NotImplementedError),
     (dict(pair_kernel="segg", pair_budget=1024), ValueError),
     (dict(pair_kernel="seg", pair_budget=1024, band_tile_rows=1),

@@ -10,7 +10,10 @@
   sign noise in near-zero gradient entries; its arithmetic is the same
   term for term, so rtol 1e-6.
 - The trainer: injected view order, the up-front refusal of unported
-  schedule events, the pair-overflow watermark's actions.
+  schedule events, the pair-overflow watermark's actions (the fallback
+  switches to the dense two-level path), and a density event after a
+  fallback held to the JAX package's density function on the same state
+  (alive exact, parameters and moments within 1e-6).
 - The CLI on CPU: outputs, the skip guard, and checkpoints that cross
   between the packages through ``convert.py``.
 """
@@ -243,11 +246,13 @@ def test_train_cli_refuses_mesh_flags(cfg_path):
                         "--mesh_tiles", "2"])
 
 
+WAYWARD = {"if_cull_wayward": True, "cull_wayward_apply": True}
+
+
 @pytest.mark.parametrize("change,match", [
-    (dict(model={"if_duplicate_high_pos_grad": True,
-                 "dup_high_pos_grads_at_epoch": [1]}), "density"),
-    (dict(model={"if_cull_low_opacity": True,
-                 "cull_opacity_at_epoch": [0]}), "density"),
+    (dict(model=dict(WAYWARD, cull_wayward_at_epoch=[1])), "wayward"),
+    (dict(model=dict(WAYWARD, cull_wayward_at_epoch=[0],
+                     cull_wayward_method="pca_ratio")), "wayward"),
     (dict(orient={"start_dir_loss_at_epoch": 0}), "direction"),
     (dict(orient={"start_ratio_loss_at_epoch": 0}), "ratio"),
     (dict(model={"staged_capacity": True}), "staged"),
@@ -264,30 +269,120 @@ def test_train_refuses_unported_schedule(cfg_path, change, match):
 
 
 def test_shipped_recipe_is_refused_past_its_first_density_epoch():
-    from edgegaussians_tpu.config import load_config
+    """The recipe's density events are ported: it runs through epoch 100
+    (duplications at 40..100) and is refused from the first epoch of the
+    ratio loss (epochs > 100), whose kNN is not ported yet."""
+    from edgegaussians_tpu_torch.config import load_config
     cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
                                    "configs", "ABC_DexiNed.json"))
-    cfg.training.num_epochs = 40
+    cfg.training.num_epochs = 101
     trainer.check_schedule_is_ported(cfg)
-    cfg.training.num_epochs = 41
-    with pytest.raises(NotImplementedError, match="epoch 40"):
+    cfg.training.num_epochs = 102
+    with pytest.raises(NotImplementedError, match="ratio loss"):
         trainer.check_schedule_is_ported(cfg)
 
 
+def _count_renders(monkeypatch):
+    """Count the seg and two-level compositor calls of the rasterizer."""
+    from edgegaussians_tpu_torch.ops import rasterize as rz
+    calls = {"seg": 0, "two_level": 0}
+    for name, fn_name in (("seg", "SegpairRender"),
+                          ("two_level", "TileRenderTwoLevel")):
+        fn = getattr(rz, fn_name)
+
+        class Counted(fn):
+            @classmethod
+            def apply(cls, *args, _name=name, **kw):
+                calls[_name] += 1
+                return super().apply(*args, **kw)
+
+        monkeypatch.setattr(rz, fn_name, Counted)
+    return calls
+
+
 @pytest.mark.parametrize("action,err", [
-    ("warn", None), ("error", RuntimeError),
-    ("fallback", NotImplementedError)])
-def test_pair_overflow_actions(cfg_path, action, err):
-    _, d = cfg_path(tile_pair_budget=16, tile_pair_overflow_action=action)
-    d["training"]["num_epochs"] = 1
+    ("warn", None), ("error", RuntimeError), ("fallback", None)])
+def test_pair_overflow_actions(cfg_path, monkeypatch, action, err):
+    _, d = cfg_path(tile_pair_budget=16, tile_pair_overflow_action=action,
+                    tile_dense_capacity=16)
+    d["training"]["num_epochs"] = 2 if action == "fallback" else 1
     cfg = config_from_dict(d)
     scene, seeds = _scene_and_seeds(cfg)
     logs = []
+    calls = _count_renders(monkeypatch)
     if err is None:
         trainer.train(scene, seeds, cfg, backend="torch", log_fn=logs.append)
-        assert any("WARNING" in line and "DROPPED" in line for line in logs)
+        warnings = [line for line in logs
+                    if "WARNING" in line and "DROPPED" in line]
+        assert len(warnings) == 1 and "tile_pair_budget=16" in warnings[0]
     else:
         with pytest.raises(err, match="tile_pair_budget=16"):
             trainer.train(scene, seeds, cfg, backend="torch",
                           log_fn=logs.append)
     assert logs and "px/s=" in logs[0] and "pairs=" in logs[0]
+    if action == "fallback":
+        # the overflowed epoch stays truncated; the next renders all go
+        # through the dense two-level frame, and pairs are still reported
+        assert "switching to the dense frame path" in warnings[0]
+        assert calls == {"seg": VIEWS, "two_level": VIEWS}
+        assert logs[-1].startswith("epoch 1: ") and "pairs=" in logs[-1]
+        assert float(logs[-1].split("loss=")[1].split()[0]) > 0
+
+
+def test_density_event_after_a_fallback_matches_jax(cfg_path, tmp_path):
+    """3 epochs: epoch 0 overflows the pair budget and falls back to the
+    dense two-level frame, epoch 1 ends with a duplication, epoch 2 trains
+    on. The state right after the event is held to the JAX package's
+    density function applied to the same pre-event state (from a twin run
+    without the event) with the same noise."""
+    event = dict(tile_pair_budget=16, tile_dense_capacity=16,
+                 tile_overflow_tiles=4, if_duplicate_high_pos_grad=True,
+                 dup_high_pos_grads_at_epoch=[1],
+                 dup_threshold_type="top_fraction", dup_threshold_value=0.3,
+                 dup_factor=3)
+    _, d = cfg_path(**event)
+    d["training"]["num_epochs"] = 3
+    d["training"]["checkpoint_interval"] = 1
+    cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
+    key = jax.random.PRNGKey(11)
+    cap = cfg.model.max_num_gaussians
+    noise = np.asarray(jax.random.normal(key, (2, cap, 3)))
+    logs = []
+    state = trainer.train(scene, seeds, cfg, backend="torch",
+                          log_fn=logs.append,
+                          checkpoint_dir=str(tmp_path / "event"),
+                          density_noise={1: torch.tensor(noise)})
+    assert sum("switching to the dense frame path" in x for x in logs) == 1
+    assert [x.split(":")[0] for x in logs if x.startswith("epoch")][-1] \
+        == "epoch 2"
+    assert int(state.model.alive.sum()) > seeds.shape[0]
+
+    twin = config_from_dict(dict(d, training=dict(d["training"],
+                                                  num_epochs=2)))
+    twin.model.if_duplicate_high_pos_grad = False
+    trainer.train(scene, seeds, twin, backend="torch", log_fn=lambda _: None,
+                  checkpoint_dir=str(tmp_path / "twin"))
+    pre = jtrainer.load_checkpoint(str(tmp_path / "twin" / "epoch1.npz"),
+                                   jtrainer.init_train_state(seeds, cfg))
+    images = np.asarray(scene.images, np.float32)
+    gs, moments = jtrainer.make_density_fn(cfg)(
+        pre.gaussians, pre.opt.moments,
+        jnp.asarray(jtrainer.density_flags(1, cfg)),
+        jnp.asarray(scene.viewmats), jnp.asarray(scene.Ks),
+        jnp.asarray(images >= cfg.model.edge_detection_threshold), key)
+    post = jtrainer.load_checkpoint(str(tmp_path / "event" / "epoch1.npz"),
+                                    jtrainer.init_train_state(seeds, cfg))
+    np.testing.assert_array_equal(np.asarray(post.gaussians.alive),
+                                  np.asarray(gs.alive))
+    assert int(np.sum(gs.alive)) > int(np.sum(pre.gaussians.alive))
+    for g in GROUPS:
+        np.testing.assert_allclose(
+            np.asarray(getattr(post.gaussians.params, g)),
+            np.asarray(getattr(gs.params, g)), rtol=0, atol=1e-6, err_msg=g)
+        for a, b in zip(getattr(post.opt.moments, g), getattr(moments, g)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
+                                       atol=1e-6, err_msg="moment " + g)
+    np.testing.assert_array_equal(np.asarray(post.gaussians.absgrads),
+                                  np.asarray(gs.absgrads))
+    assert float(post.gaussians.absgrad_count) == 1.0
