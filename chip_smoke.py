@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--profile_dir DIR]
+    python3 chip_smoke.py [--profile_dir DIR] [--full]
 
 Phases, in order; any failure exits non-zero:
 
@@ -16,6 +16,11 @@ Phases, in order; any failure exits non-zero:
    occupancy sort, pair budget 0), both levels, level 2 fed level 1's
    t_out. Both print errors and fwd/bwd times (CUDA events, median of 5
    blocks) per camera beside each kernel's bound.
+   2 (knn): the kNN kernel against its plain version at the recipe's
+   capacity: the fixture's 12740 means as live rows padded with dead
+   rows to 16384, k = 6 (the ABC fetch), 11 and 15, plus a mask with 4
+   live rows for the dry slots; times of the kernel, the plain version
+   and a cdist + topk yardstick beside the bound.
    2b: the whole rasterizer on the GPU against the CPU path on a small
    scene, through the seg, two-level and single-level dispatch.
 3. The seg main path: a synthetic 10-view 800x800 scan trained for 3
@@ -27,6 +32,16 @@ Phases, in order; any failure exits non-zero:
    2. Epoch 0 overflows and the run switches to the dense two-level path:
    seg launches = views, dense launches = 2 levels x views x 4 epochs, and
    ``alive`` grows at the duplication.
+5. The orientation path: the same scan and recipe for 6 epochs with the
+   ratio loss from epoch 1, the direction loss from epoch 2 and an
+   applied wayward cull at epoch 3: kNN launches = direction fires + 1,
+   segpair launches = epochs x views, ``alive`` falls after the cull.
+   Then the port's ``cli.fit_edges`` and ``cli.evaluate`` on its output.
+
+With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
+(400 epochs) on a 50-view 800x800 synthetic scan made as
+``cli/make_synthetic.py --seed 11`` makes SYN01, then fit_edges and
+evaluate, printing chamfer and F@5/10/20 (ROADMAP Queue 1 #9).
 
 With ``--profile_dir``, phases 3 and 4 also trace epoch 2 with
 torch.profiler (``cli.train --profile_dir``; the tracing slows those
@@ -60,13 +75,20 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
-KERNEL_LIBS = ("segpair", "raster_v2")
+KERNEL_LIBS = ("segpair", "raster_v2", "knn")
 EPOCHS = 3
 VIEWS = 10
 FALLBACK_EPOCHS = 5
 FALLBACK_BUDGET = 2048      # below epoch 0's ~6.2k pairs per view
 DUP_EPOCH = 2
 K1, K2, T2 = 128, 640, 128  # the recipe's two-level settings
+KNN_CAPACITY = 16384        # the ABC recipe's max_num_gaussians
+KNN_KS = (6, 11, 15)        # ABC direction fetch, Replica's, wayward cull
+KNN_RTOL = 1e-6             # kernel vs plain distances (bit-equal by design)
+ORIENT_EPOCHS = 6
+ORIENT_CUTS = dict(start_ratio_loss_at_epoch=0, start_dir_loss_at_epoch=1)
+WAYWARD_EPOCH = 3
+FULL_VIEWS = 50
 TIMING_BLOCKS = 5
 # forward image: both sides take the same f32 steps per pixel; only the
 # order of the log-alpha sum (FMA chain vs matmul) and of the
@@ -89,6 +111,8 @@ SFU_OPS = F32_FLOPS / 16
 # and six sums of the per-slot reduction
 FWD_OPS = (16, 1)           # (flops, special-function ops)
 BWD_OPS = (29, 2)
+# per (query, live key) of the kNN: 3 subs, 3 muls, 2 adds, the dead-key add
+KNN_OPS = (9, 0)
 EPS_T = 1e-4                # transmittance below which a walk stops
 
 
@@ -484,6 +508,104 @@ def phase_dense_kernels(device):
     return err, time_kernels(calls, len(cases), bounds), bounds
 
 
+def knn_inputs(device):
+    """The fixture's means as live rows, padded with dead rows (at the
+    origin, as a fixed-capacity state's free slots) to the recipe's
+    capacity."""
+    means = np.load(FIXTURE)["means"].astype(np.float32)
+    n_live = means.shape[0]
+    pts = np.zeros((KNN_CAPACITY, 3), np.float32)
+    pts[:n_live] = means
+    mask = np.zeros(KNN_CAPACITY, bool)
+    mask[:n_live] = True
+    return (torch.from_numpy(pts).to(device),
+            torch.from_numpy(mask).to(device), n_live)
+
+
+def check_knn(d_k, i_k, d_r, i_r, mask, what: str) -> float:
+    """Kernel against plain: distances within KNN_RTOL relative, indices
+    equal except where the two candidates' d^2 differ by at most
+    KNN_RTOL relative; no self, no dead neighbour on wet slots; dry slots
+    float32 max with index 0 on both sides. Returns the max abs error of
+    the wet distances."""
+    from edgegaussians_tpu_torch.ops import knn as knn_mod
+    dry = d_r == knn_mod.F32_MAX
+    if not torch.equal(dry, d_k == knn_mod.F32_MAX) or \
+            not bool((i_k[dry] == 0).all()) or \
+            not bool((i_r[dry] == 0).all()):
+        raise AssertionError(f"{what}: dry slots disagree")
+    wet = ~dry
+    err = (d_k[wet] - d_r[wet]).abs()
+    if bool((err > KNN_RTOL * d_r[wet].abs()).any()):
+        raise AssertionError(f"{what}: distances differ by "
+                             f"{err.max().item():.3g}")
+    neq = (i_k != i_r) & wet
+    if bool(neq.any()):
+        d2k, d2r = d_k[neq] ** 2, d_r[neq] ** 2
+        if bool(((d2k - d2r).abs() > KNN_RTOL * d2r).any()):
+            raise AssertionError(f"{what}: {int(neq.sum())} indices differ "
+                                 "beyond a near-tie")
+    rows = torch.arange(i_k.shape[0], device=i_k.device)[:, None]
+    if bool((i_k[wet] == rows.expand_as(i_k)[wet]).any()) or \
+            not bool(mask[i_k[wet]].all()):
+        raise AssertionError(f"{what}: a self or dead neighbour")
+    return float(err.max()) if bool(wet.any()) else 0.0
+
+
+def phase_knn_kernel(device):
+    from edgegaussians_tpu_torch.ops import knn as knn_mod
+    pts, mask, n_live = knn_inputs(device)
+    n = pts.shape[0]
+    log(f"== phase 2 (knn): kNN kernel vs plain version, fixture means "
+        f"({n_live} live rows) padded to {n} with dead rows")
+    err = 0.0
+    with torch.no_grad():
+        for k in KNN_KS:
+            d_k, i_k = knn_mod.knn(pts, k, mask)
+            torch.cuda.synchronize()
+            d_r, i_r = knn_mod.knn_ref(pts, k, mask)
+            e = check_knn(d_k, i_k, d_r, i_r, mask, f"k={k}")
+            # no dry slot: dead query rows get live neighbours too
+            if bool((d_r == knn_mod.F32_MAX).any()):
+                raise AssertionError(f"k={k}: dry slots with {n_live} live "
+                                     "rows")
+            err = max(err, e)
+            log(f"k={k}: max_abs_err {e:.3g}, indices equal "
+                f"{bool(torch.equal(i_k, i_r))}, dead rows answered")
+        few = torch.zeros_like(mask)
+        few[[0, 5000, 9000, 12000]] = True
+        d_k, i_k = knn_mod.knn(pts, 6, few)
+        torch.cuda.synchronize()
+        d_r, i_r = knn_mod.knn_ref(pts, 6, few)
+        check_knn(d_k, i_k, d_r, i_r, few, "4 live rows")
+        dry = (d_k == knn_mod.F32_MAX).sum(dim=1)
+        if not (bool((dry[few] == 3).all()) and
+                bool((dry[~few] == 2).all())):
+            raise AssertionError("4 live rows: dry slot counts")
+        log("4 live rows, k=6: live rows 3 dry slots, dead rows 2, "
+            "float32 max and index 0 on both sides")
+
+        k = KNN_KS[0]
+        big = torch.tensor(float("inf"), device=device)
+
+        def library():
+            # the yardstick: one cdist, the masks, one topk
+            d = torch.cdist(pts, pts)
+            d = torch.where(mask[None, :], d, big)
+            d.fill_diagonal_(float("inf"))
+            return torch.topk(d, k, dim=1, largest=False)
+
+        ms = (cuda_ms(lambda: knn_mod.knn(pts, k, mask), 20),
+              cuda_ms(lambda: knn_mod.knn_ref(pts, k, mask), 2),
+              cuda_ms(library, 5))
+    nbytes = n * 12 + n + n * k * 12
+    bound = bound_ms(nbytes, n * n_live, KNN_OPS)
+    log(f"knn k={k}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+        f"cdist+topk {ms[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{n * n_live} query-key pairs)")
+    return err, ms, bound
+
+
 def small_scene(seed=0, n=300, width=64, height=48):
     r = np.random.default_rng(seed)
     means = r.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
@@ -587,18 +709,25 @@ def trace_summary(trace_path: str, view_steps: int) -> str:
             + "; ".join(f"{n[:60]} {d / 1e3:.3f}" for n, d in top))
 
 
-def train_cli_run(tmp: str, scan: str, epochs: int, tag: str,
-                  profile_dir=None, **model):
+def train_cli_run(tmp: str, scan: str, epochs, tag: str,
+                  profile_dir=None, orient=None, views=VIEWS, echo=True,
+                  seed=None, **model):
     """Train the recipe on ``scan`` through the CLI with every launch
     count set to 0 just before; returns (log text, launches read just
-    after, output dir). ``profile_dir`` traces epoch 2 and prints its
-    summary."""
+    after, output dir, config path). ``epochs`` and ``seed`` None keep
+    the recipe's; ``orient`` updates its orientation losses.
+    ``profile_dir`` traces epoch 2 and prints its summary; ``echo`` False
+    only captures the CLI's output."""
     from edgegaussians_tpu_torch.cli import train as train_cli
-    from edgegaussians_tpu_torch.ops import raster_v2, segpair
+    from edgegaussians_tpu_torch.ops import knn, raster_v2, segpair
     with open(RECIPE) as f:
         cfg = json.load(f)
-    cfg["training"]["num_epochs"] = epochs
+    if epochs is not None:
+        cfg["training"]["num_epochs"] = epochs
+    if seed is not None:
+        cfg["training"]["seed"] = seed
     cfg["model"].update(model)
+    cfg["training"]["loss"]["orientation_losses"].update(orient or {})
     cfg["data"]["base_dir"] = os.path.join(tmp, "data") + "/"
     for k in ("output_dir", "checkpoint_dir", "log_dir"):
         cfg["output"][k] = os.path.join(tmp, tag, k) + "/"
@@ -608,24 +737,27 @@ def train_cli_run(tmp: str, scan: str, epochs: int, tag: str,
     captured = io.StringIO()
     segpair.reset_launch_counts()
     raster_v2.reset_launch_counts()
+    knn.reset_launch_counts()
     argv = ["--config_file", cfg_path, "--scene_name", scan, "--backend",
             "cuda", "--force_rerun"]
     if profile_dir:
         argv += ["--profile_dir", os.path.join(profile_dir, tag),
                  "--profile_epochs", "1"]
-    with contextlib.redirect_stdout(Tee(sys.stdout, captured)):
+    with contextlib.redirect_stdout(Tee(sys.stdout, captured) if echo
+                                    else captured):
         rc = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = dict(segpair.launch_counts, **raster_v2.launch_counts)
+    launches = dict(segpair.launch_counts, **raster_v2.launch_counts,
+                    **knn.launch_counts)
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
     if profile_dir:
         log(f"{tag} path, epoch 2 traced: " + trace_summary(
-            os.path.join(profile_dir, tag, "trace.json"), VIEWS))
+            os.path.join(profile_dir, tag, "trace.json"), views))
     out_dir = os.path.join(cfg["output"]["output_dir"],
                            f"{cfg['output']['exp_name']}_"
                            f"{cfg['data']['edge_detection_method']}", scan)
-    return captured.getvalue(), launches, out_dir
+    return captured.getvalue(), launches, out_dir, cfg_path
 
 
 def epoch_lines(text: str, epochs: int):
@@ -655,11 +787,11 @@ def check_outputs(out_dir: str, epochs: int, n_expected: int) -> int:
 def phase_main_path(tmp: str, scan: str, profile_dir=None):
     log(f"== phase 3: main path, {EPOCHS} epochs of ABC_DexiNed on a "
         f"{VIEWS}-view 800x800 synthetic scan")
-    text, launches, out_dir = train_cli_run(tmp, scan, EPOCHS, "seg",
-                                            profile_dir)
+    text, launches, out_dir, _ = train_cli_run(tmp, scan, EPOCHS, "seg",
+                                               profile_dir)
     rows = epoch_lines(text, EPOCHS)
     expected = {"segpair_fwd": EPOCHS * VIEWS, "segpair_bwd": EPOCHS * VIEWS,
-                "raster_v2_fwd": 0, "raster_v2_bwd": 0}
+                "raster_v2_fwd": 0, "raster_v2_bwd": 0, "knn": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches} on the seg main path, "
                              f"expected {expected}")
@@ -676,7 +808,7 @@ def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
         f"ABC_DexiNed on the same scan; cuts: tile_pair_budget="
         f"{FALLBACK_BUDGET} (epoch 0 overflows), "
         f"dup_high_pos_grads_at_epoch=[{DUP_EPOCH}]")
-    text, launches, out_dir = train_cli_run(
+    text, launches, out_dir, _ = train_cli_run(
         tmp, scan, FALLBACK_EPOCHS, "fallback", profile_dir,
         tile_pair_budget=FALLBACK_BUDGET,
         dup_high_pos_grads_at_epoch=[DUP_EPOCH])
@@ -688,7 +820,7 @@ def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
                              "expected one after epoch 0")
     dense = 2 * VIEWS * (FALLBACK_EPOCHS - 1)
     expected = {"segpair_fwd": VIEWS, "segpair_bwd": VIEWS,
-                "raster_v2_fwd": dense, "raster_v2_bwd": dense}
+                "raster_v2_fwd": dense, "raster_v2_bwd": dense, "knn": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches} on the fallback path, "
                              f"expected {expected}")
@@ -706,10 +838,124 @@ def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
     return launches, [r[2] for r in rows[1:]]
 
 
+def direction_fires(epochs: int, views: int, start_epoch: int) -> int:
+    """Renders at which the direction loss fires: every 5th render
+    (counted over the run) of an epoch past its start epoch."""
+    return sum(1 for step in range(1, epochs * views + 1)
+               if step % 5 == 0 and (step - 1) // views > start_epoch)
+
+
+def downstream(tmp: str, scan: str, cfg_path: str, out_dir: str, tag: str,
+               cluster_seed=None):
+    """The port's cli.fit_edges (``--seed cluster_seed`` when given) then
+    cli.evaluate (with --write_metrics) on a trained scan; both must exit
+    0 and write their files. Returns (parametric edges, per-scan chamfer
+    metrics or None, PR metrics)."""
+    import pickle
+
+    from edgegaussians_tpu_torch.cli import evaluate, fit_edges
+    t0 = time.time()
+    argv = ["--config_file", cfg_path, "--scene_name", scan]
+    if cluster_seed is not None:
+        argv += ["--seed", str(cluster_seed)]
+    if fit_edges.main(argv):
+        raise AssertionError("cli.fit_edges returned non-zero")
+    with open(os.path.join(out_dir, "parametric_edges.json")) as f:
+        edges = json.load(f)
+    metrics_dir = os.path.join(tmp, tag, "metrics")
+    if evaluate.main(["--scan_names", scan, "--gt_base_dir",
+                      os.path.join(tmp, "groundtruth"), "--output_base_dir",
+                      os.path.dirname(out_dir), "--use_parametric_edges",
+                      "--write_metrics", "--write_metrics_dir",
+                      metrics_dir]):
+        raise AssertionError("cli.evaluate returned non-zero")
+    written = os.path.join(metrics_dir, "release", "DexiNed")
+    with open(os.path.join(written, "pr.pkl"), "rb") as f:
+        pr = pickle.load(f)
+    with open(os.path.join(written, "acc_comp_chamfer.pkl"), "rb") as f:
+        per_scan = pickle.load(f).get(scan, {}).get("edgegaussians")
+    log(f"fit_edges + evaluate in {time.time() - t0:.1f}s: "
+        f"{len(edges['lines_end_pts'])} lines, "
+        f"{len(edges['curves_ctl_pts'])} curves, metrics {per_scan}")
+    return edges, per_scan, pr
+
+
+def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
+    log(f"== phase 5: orientation path, {ORIENT_EPOCHS} epochs of "
+        f"ABC_DexiNed on the same scan; cuts: "
+        + ", ".join(f"{k}={v}" for k, v in ORIENT_CUTS.items())
+        + f", if_cull_wayward=true, cull_wayward_apply=true, "
+        f"cull_wayward_at_epoch=[{WAYWARD_EPOCH}]")
+    text, launches, out_dir, cfg_path = train_cli_run(
+        tmp, scan, ORIENT_EPOCHS, "orient", profile_dir, orient=ORIENT_CUTS,
+        if_cull_wayward=True, cull_wayward_apply=True,
+        cull_wayward_at_epoch=[WAYWARD_EPOCH])
+    rows = epoch_lines(text, ORIENT_EPOCHS)
+    fires = direction_fires(ORIENT_EPOCHS, VIEWS,
+                            ORIENT_CUTS["start_dir_loss_at_epoch"])
+    views = ORIENT_EPOCHS * VIEWS
+    expected = {"segpair_fwd": views, "segpair_bwd": views,
+                "raster_v2_fwd": 0, "raster_v2_bwd": 0, "knn": fires + 1}
+    if launches != expected:
+        raise AssertionError(f"launches {launches} on the orientation path, "
+                             f"expected {expected} ({fires} direction "
+                             "fires + 1 wayward cull)")
+    alive = [r[1] for r in rows]
+    # an epoch line reports alive before that epoch's density event
+    if not alive[WAYWARD_EPOCH + 1] < alive[WAYWARD_EPOCH] == alive[0]:
+        raise AssertionError(f"alive per epoch {alive}: no fall at the "
+                             f"wayward cull of epoch {WAYWARD_EPOCH}")
+    with np.load(os.path.join(out_dir, f"epoch{ORIENT_EPOCHS - 1}.npz")) \
+            as ck:
+        n_alive = int(ck["f:.gaussians.alive"].sum())
+    n = check_outputs(out_dir, ORIENT_EPOCHS, n_alive)
+    log(f"orientation path ok: losses={[r[0] for r in rows]} alive={alive} "
+        f"launches={launches} ply={n} Gaussians")
+    downstream(tmp, scan, cfg_path, out_dir, "orient")
+    return launches, [r[2] for r in rows[1:]]
+
+
+def phase_full(tmp: str):
+    from edgegaussians_tpu_torch.data.synthetic import generate_scene
+    scan = "SYN01"
+    with open(RECIPE) as f:
+        epochs = json.load(f)["training"]["num_epochs"]
+    log(f"== full: the unmodified ABC_DexiNed recipe ({epochs} epochs) on "
+        f"{scan}, a {FULL_VIEWS}-view 800x800 synthetic scan "
+        "(cli/make_synthetic.py --seed 11)")
+    generate_scene(tmp, scan, seed=11, n_views=FULL_VIEWS, width=800,
+                   height=800)
+    t0 = time.time()
+    text, launches, out_dir, cfg_path = train_cli_run(
+        tmp, scan, None, "full", views=FULL_VIEWS, echo=False)
+    wall = time.time() - t0
+    rows = epoch_lines(text, epochs)
+    for line in text.splitlines():
+        m = re.match(r"epoch (\d+): ", line)
+        if not m or int(m.group(1)) % 25 == 0 or \
+                int(m.group(1)) == epochs - 1:
+            log(line)
+    pxs = [r[2] for r in rows[1:]]
+    log(f"full: train wall {wall:.1f}s (CLI, set-up included), "
+        f"steady epochs median {float(np.median(pxs))} Mpx/s, "
+        f"alive {rows[-1][1]}, launches {launches}")
+    _, per_scan, pr = downstream(tmp, scan, cfg_path, out_dir, "full")
+    if per_scan is None:
+        raise AssertionError("full: no predictions to evaluate")
+    f_at = [pr[f"fscore_{t}"][0] for t in (0.005, 0.01, 0.02)]
+    log(f"full: chamfer {per_scan['chamfer_dist']} acc {per_scan['acc']} "
+        f"comp {per_scan['comp']} F@5/10/20 {f_at[0]} / {f_at[1]} / "
+        f"{f_at[2]} (JAX distribution on such scans: chamfer 0.0049 +- "
+        "0.0001, F@10 0.995 +- 0.001)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile_dir", default=None,
-                    help="also trace epoch 2 of phases 3 and 4 here")
+                    help="also trace epoch 2 of phases 3, 4 and 5 here")
+    ap.add_argument("--full", action="store_true",
+                    help="also run the whole 400-epoch recipe, then "
+                         "fit_edges and evaluate")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -721,6 +967,7 @@ def main() -> int:
     err.update(err_d)
     ms.update(ms_d)
     bounds.update(bounds_d)
+    err["knn"], ms["knn"], bounds["knn"] = phase_knn_kernel(device)
     phase_whole_path(device)
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     with tempfile.TemporaryDirectory() as tmp:
@@ -733,9 +980,14 @@ def main() -> int:
                                                 args.profile_dir)
         dense_launches, dense_pxs = phase_fallback_path(tmp, scan,
                                                         args.profile_dir)
+        orient_launches, orient_pxs = phase_orientation_path(
+            tmp, scan, args.profile_dir)
+        if args.full:
+            phase_full(tmp)
     log(f"steady epochs (epoch >= 1): seg path {seg_pxs} Mpx/s; fallback "
-        f"run, dense two-level path {dense_pxs} Mpx/s")
-    from edgegaussians_tpu_torch.ops import raster_v2, segpair
+        f"run, dense two-level path {dense_pxs} Mpx/s; orientation path "
+        f"{orient_pxs} Mpx/s")
+    from edgegaussians_tpu_torch.ops import knn, raster_v2, segpair
     kernels = []
     for name, source, replaces, launches in (
             ("segpair_fwd", segpair.KERNEL_SOURCE,
@@ -746,13 +998,16 @@ def main() -> int:
              "edgegaussians_tpu/ops/pallas_raster_v2.py:94", dense_launches),
             ("raster_v2_bwd", raster_v2.KERNEL_SOURCE,
              "edgegaussians_tpu/ops/pallas_raster_v2.py:146",
-             dense_launches)):
+             dense_launches),
+            ("knn", knn.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_knn.py:52", orient_launches)):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms[name][0],
             "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": None})
+            "bound_by": bounds[name][1],
+            "library_ms": ms[name][2] if len(ms[name]) > 2 else None})
     print(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,15 +5,17 @@ reference) to PyTorch on an NVIDIA H100. Module names mirror the JAX
 package so each module's counterpart is easy to find. The port imports
 nothing of the JAX package: the NumPy-only modules it needs (``config``,
 ``cameras``, ``io.ply``, ``io.colmap``, ``data.parsers``,
-``data.seed_points``, ``data.synthetic``) are copies of their JAX-package
-namesakes, held equal to them by tests/test_torch_common.py.
+``data.seed_points``, ``data.synthetic``, ``eval.*``, ``extract.*``) are
+copies of their JAX-package namesakes, held equal to them by
+tests/test_torch_common.py.
 
 Two backends:
 
-- ``"cuda"``: tensors live on the GPU and the compositor runs the CUDA
-  kernels in ``csrc/`` (built at first use by ``ops/_build.py``);
-- ``"torch"``: tensors live on the CPU and the compositor runs its plain
-  PyTorch version. This is the path the CPU tests hold to JAX.
+- ``"cuda"``: tensors live on the GPU and the compositors and the kNN
+  run the CUDA kernels in ``csrc/`` (built at first use by
+  ``ops/_build.py``);
+- ``"torch"``: tensors live on the CPU and every kernel's plain PyTorch
+  version runs instead. This is the path the CPU tests hold to JAX.
 
 A kernel wrapper chooses by the device of the tensor it is given: a CUDA
 tensor launches the kernel or raises, a CPU tensor takes the plain

@@ -14,8 +14,7 @@ The JAX version's bug-faithful behaviours are kept (density.py:10-18):
 every cull clamps all opacity logits to ``reset_opacity_value``;
 ``percentile_top`` duplication compares min-max normalized grads against
 an unnormalized quantile; ``cull_wayward`` does nothing unless
-``cull_wayward_apply`` is set. With that flag set it raises here: its mask
-needs the kNN of ROADMAP Queue 1 #6, not ported yet.
+``cull_wayward_apply`` is set.
 
 Duplication noise is a standard-normal ``[dup_factor - 1, capacity, 3]``
 draw, scaled by ``init_dup_rand_noise_scale``. The caller passes it (tests
@@ -31,6 +30,7 @@ import torch
 
 from edgegaussians_tpu_torch.config import ModelConfig
 from edgegaussians_tpu_torch.models.gaussians import GROUPS, GaussianModel
+from edgegaussians_tpu_torch.ops.knn import knn
 from edgegaussians_tpu_torch.train.optim import OptState
 
 _BIG = 3.4e38
@@ -127,13 +127,44 @@ def cull_not_projecting(model: GaussianModel, config: ModelConfig,
          config)
 
 
+@torch.no_grad()
+def wayward_mask(model: GaussianModel, config: ModelConfig) -> torch.Tensor:
+    """Outlier mask from the kNN of the live means (density.py:165-189):
+    ``pca_ratio`` keeps rows whose neighbour directions' smallest/middle
+    singular value ratio is at most its ``cull_wayward_threshold_value``
+    quantile; ``mean_distance`` / ``max_distance`` flag rows above the
+    ``percentile_top`` quantile or the absolute threshold."""
+    k = config.cull_wayward_num_neighbors
+    means = model.means.detach()
+    dists, idx = knn(means, k, mask=model.alive)
+    if config.cull_wayward_method == "pca_ratio":
+        d = means[:, None, :] - means[idx]
+        d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                            min=1e-12)
+        d = d - d.mean(dim=1, keepdim=True)
+        cov = torch.einsum("nki,nkj->nij", d, d) / k
+        s = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(cov), min=0.0))
+        cns = s[:, 0] / torch.clamp(s[:, 1], min=1e-12)
+        thresh = masked_quantile(cns, model.alive,
+                                 config.cull_wayward_threshold_value)
+        return cns <= thresh
+    if config.cull_wayward_method == "max_distance":
+        d = dists.amax(dim=-1)
+    else:                                             # mean_distance
+        d = dists.mean(dim=-1)
+    if config.cull_wayward_threshold_type == "percentile_top":
+        thresh = masked_quantile(d, model.alive,
+                                 1.0 - config.cull_wayward_threshold_value,
+                                 method="lower")
+        return d > thresh
+    return d > config.cull_wayward_threshold_value
+
+
 def cull_wayward(model: GaussianModel, config: ModelConfig) -> None:
     """The reference computes the wayward mask but never culls (SURVEY
     §6.5.1): a no-op unless ``cull_wayward_apply`` is set."""
     if config.cull_wayward_apply:
-        raise NotImplementedError(
-            "cull_wayward with cull_wayward_apply needs the kNN of the "
-            "orientation-loss slice, not ported yet (ROADMAP Queue 1 #6)")
+        cull(model, wayward_mask(model, config), config)
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """Quaternion / rotation utilities (PyTorch, batched, differentiable).
 
 Counterpart of ``edgegaussians_tpu/ops/transforms.py:13-104``. Quaternions
-are wxyz. ``major_directions`` is ported with the direction loss.
+are wxyz.
 """
 
 from __future__ import annotations
@@ -37,3 +37,15 @@ def covariance6_from_quat_scale(quats: torch.Tensor, scales: torch.Tensor):
         return m[i][0] * m[j][0] + m[i][1] * m[j][1] + m[i][2] * m[j][2]
 
     return dot(0, 0), dot(0, 1), dot(0, 2), dot(1, 1), dot(1, 2), dot(2, 2)
+
+
+def major_directions(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """Unit direction of each Gaussian's largest principal axis
+    (transforms.py:43-69): the rotation-matrix column at the argmax of
+    ``|scales|`` (linear scales), the first maximum on ties as
+    ``jnp.argmax``. No gradient flows through the argmax."""
+    r = rotmat_elements(quats)
+    cols = torch.stack([torch.stack([r[0][c], r[1][c], r[2][c]], dim=-1)
+                        for c in range(3)], dim=1)              # [N,3,3]
+    amax = torch.argmax(torch.abs(scales), dim=-1)              # [N]
+    return cols[torch.arange(cols.shape[0], device=cols.device), amax]

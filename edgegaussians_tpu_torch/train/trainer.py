@@ -1,19 +1,18 @@
 """Training orchestration: the per-view step and the epoch loop.
 
-Counterpart of ``edgegaussians_tpu/train/trainer.py`` for the part of the
-reference training loop (train_gaussians.py:17-222) that the ported slice
-runs: one Adam step per view in a shuffled view order, with the
-projection loss's strategy chosen per render (train_gaussians.py:73-77),
-absgrad accumulated after every backward (edge_gs.py:607-613), density
-control at its scheduled epochs, the pair-overflow watermark with its
-warn, error and fallback actions, checkpoints in the JAX ``.npz`` key
-layout, and the JAX trainer's epoch log line.
+Counterpart of ``edgegaussians_tpu/train/trainer.py`` for the
+single-device reference training loop (train_gaussians.py:17-222): one
+Adam step per view in a shuffled view order, with the projection loss's
+strategy chosen per render (train_gaussians.py:73-77), absgrad accumulated
+after every backward (edge_gs.py:607-613), the direction and ratio losses
+every 5 renders once their start epochs have passed (each its own Adam
+step on the geometry groups, train_gaussians.py:108-131), density control
+at its scheduled epochs, the pair-overflow watermark with its warn, error
+and fallback actions, checkpoints in the JAX ``.npz`` key layout, and the
+JAX trainer's epoch log line.
 
-Not ported yet, and refused up front by :func:`train` when the schedule
-would reach them within ``num_epochs``: the direction and ratio losses
-with their kNN (ROADMAP Queue 1 #6), a wayward cull with
-``cull_wayward_apply`` (its kNN too), staged capacity (Queue 1 #8) and
-the view-batch step mode (Queue 1 #12).
+Not ported yet, and refused up front by :func:`train`: staged capacity
+(ROADMAP Queue 1 #8) and the view-batch step mode (Queue 1 #12).
 
 Random draws come from one CPU ``torch.Generator`` seeded with the
 training seed: the per-epoch view permutation (injectable through
@@ -133,13 +132,57 @@ def make_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int):
     return proj_grad
 
 
+GEO_GROUPS = ("means", "scales", "quats")
+
+
+def orientation_step(state: TrainState, run_sum: torch.Tensor, lrs,
+                     ol_cfg, apply_dir: bool, apply_ratio: bool) -> None:
+    """The direction and ratio branches of a firing view step
+    (trainer.py:243-281), in place. Each is an Adam step on the geometry
+    groups with the loss's gradient scaled by ``lam = run_sum *
+    scale_factor / max(loss, 1e-12)`` (not differentiated; ``run_sum`` is
+    the epoch's running sum of projection losses, bug-faithfully). The
+    neighbours come from the means after the projection update; ``alive``
+    does not change within a step. The ratio branch reads the parameters
+    the direction branch left."""
+    model = state.model
+    alive = model.alive
+
+    def step(loss_fn, scale_factor):
+        params = [getattr(model, g) for g in GEO_GROUPS]
+        val = loss_fn()
+        grads = torch.autograd.grad(val, params, allow_unused=True,
+                                    materialize_grads=True)
+        lam = (run_sum * scale_factor) / torch.clamp(val.detach(), min=1e-12)
+        optim.apply_updates(model, {g: lam * x for g, x in
+                                    zip(GEO_GROUPS, grads)},
+                            state.opt, lrs, GEO_GROUPS)
+
+    if apply_dir:
+        num_nn = ol_cfg.dir_loss_num_nn
+        enforce = ol_cfg.dir_loss_enforce_method
+        nn_idx = losses.update_nearest_neighbors(model.means, alive, num_nn,
+                                                 enforce)
+        step(lambda: losses.direction_loss(
+            model.means, torch.exp(model.scales), model.quats, nn_idx,
+            alive, num_nn, enforce), ol_cfg.dir_loss_scale_factor)
+    if apply_ratio:
+        step(lambda: losses.ratio_loss(torch.exp(model.scales), alive),
+             ol_cfg.ratio_loss_scale_factor)
+
+
 def view_step(state: TrainState, view_idx: int, images, edge_masks,
               viewmats, Ks, *, proj_grad, lrs, lambda_proj: float,
-              bg_ratio: float, strategy_idx: int):
-    """One render + backward + Adam step on one view (trainer.py:212-241).
+              bg_ratio: float, strategy_idx: int, run_sum: torch.Tensor,
+              ol_cfg=None, apply_dir: bool = False,
+              apply_ratio: bool = False):
+    """One render + backward + Adam step on one view (trainer.py:212-241),
+    then, every 5th render, the orientation branches.
 
     The reference backprops lambda * loss but logs the raw loss
-    (train_gaussians.py:98-101)."""
+    (train_gaussians.py:98-101). ``run_sum`` is the epoch's running sum of
+    projection losses before this view; returns (stats, the sum with this
+    view's loss)."""
     model = state.model
     bg_scores = None
     if strategy_idx == 1:
@@ -156,7 +199,10 @@ def view_step(state: TrainState, view_idx: int, images, edge_masks,
             torch.linalg.vector_norm(gsink, dim=-1) * lambda_proj)
         model.absgrad_count.add_(1.0)
     state.step += 1
-    return loss, stats
+    run_sum = run_sum + loss
+    if state.step % 5 == 0 and (apply_dir or apply_ratio):
+        orientation_step(state, run_sum, lrs, ol_cfg, apply_dir, apply_ratio)
+    return stats, run_sum
 
 
 def run_epoch(state: TrainState, epoch: int, images, edge_masks, viewmats,
@@ -183,6 +229,11 @@ def run_epoch(state: TrainState, epoch: int, images, edge_masks, viewmats,
                         tcfg.num_epochs)
     lambda_proj = annealed(pl_cfg.lambda_start, pl_cfg.lambda_end,
                            pl_cfg.lambda_annealing, epoch, tcfg.num_epochs)
+    ol_cfg = tcfg.loss.orientation_losses
+    # the orientation losses apply at epochs past their start epoch
+    # (trainer.py:309-310)
+    apply_dir = epoch > ol_cfg.start_dir_loss_at_epoch
+    apply_ratio = epoch > ol_cfg.start_ratio_loss_at_epoch
 
     run_sum = torch.zeros((), device=images.device)
     peaks = torch.zeros(4, dtype=torch.int64, device=images.device)
@@ -193,11 +244,11 @@ def run_epoch(state: TrainState, epoch: int, images, edge_masks, viewmats,
                             else strat_more)
         else:
             strategy_idx = strat_before
-        loss, stats = view_step(
+        stats, run_sum = view_step(
             state, v, images, edge_masks, viewmats, Ks, proj_grad=proj_grad,
             lrs=lrs, lambda_proj=lambda_proj, bg_ratio=bg_ratio,
-            strategy_idx=strategy_idx)
-        run_sum = run_sum + loss
+            strategy_idx=strategy_idx, run_sum=run_sum, ol_cfg=ol_cfg,
+            apply_dir=apply_dir, apply_ratio=apply_ratio)
         peaks = torch.maximum(peaks, torch.stack(
             [stats.max_tile, stats.n_overflow, stats.num_truncated,
              stats.num_pairs]).to(torch.int64))
@@ -226,28 +277,8 @@ def density_flags(epoch: int, cfg: FrameworkConfig) -> np.ndarray:
 
 
 def check_schedule_is_ported(cfg: FrameworkConfig) -> None:
-    """Raise NotImplementedError when ``cfg`` would reach, within
-    ``num_epochs``, something the port does not have yet."""
-    n = cfg.training.num_epochs
-    ol = cfg.training.loss.orientation_losses
-    if cfg.model.cull_wayward_apply:
-        for epoch in range(n):
-            if density_flags(epoch, cfg)[3]:
-                raise NotImplementedError(
-                    f"the wayward cull fires at epoch {epoch} with "
-                    "cull_wayward_apply set; its kNN is not ported yet "
-                    "(ROADMAP Queue 1 #6)")
-    # the losses apply at epochs > their start epoch (trainer.py:309-310)
-    if n - 1 > ol.start_dir_loss_at_epoch:
-        raise NotImplementedError(
-            "the direction loss (and its kNN) starts after epoch "
-            f"{ol.start_dir_loss_at_epoch} within num_epochs={n}; it is "
-            "not ported yet (ROADMAP Queue 1 #6)")
-    if n - 1 > ol.start_ratio_loss_at_epoch:
-        raise NotImplementedError(
-            "the ratio loss starts after epoch "
-            f"{ol.start_ratio_loss_at_epoch} within num_epochs={n}; it is "
-            "not ported yet (ROADMAP Queue 1 #6)")
+    """Raise NotImplementedError when ``cfg`` asks for something the port
+    does not have yet."""
     if cfg.model.staged_capacity:
         raise NotImplementedError(
             "staged_capacity is not ported yet (ROADMAP Queue 1 #8)")

@@ -1,6 +1,7 @@
 """Package-level checks of the PyTorch port: it never loads JAX or the
 JAX package, its own copies of the JAX package's NumPy modules (config,
-cameras, io, data) stay equal to the originals, its backend resolution,
+cameras, io, data, eval, extract) stay equal to the originals, its
+backend resolution,
 and the plain pieces of the slice (losses, Adam schedules, model init and
 PLY round trip, the per-pixel oracle) held to the JAX package on the same
 NumPy inputs.
@@ -44,7 +45,7 @@ def test_port_never_imports_jax():
         "'edgegaussians_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "assert len(names) >= 29, names\n"
+        "assert len(names) >= 41, names\n"
         "bad = [m for m in sys.modules if m in ('jax', 'edgegaussians_tpu')\n"
         "       or m.startswith(('jax.', 'edgegaussians_tpu.'))]\n"
         "assert not bad, bad\n")
@@ -268,3 +269,87 @@ def test_synthetic_copy_writes_the_same_scene_and_parsers_read_it(tmp_path):
             50, 0.5, 1.1, np.random.default_rng(2)),
         jseeds.init_seed_points_random(50, 0.5, 1.1,
                                        np.random.default_rng(2)))
+
+
+def _copy_cases():
+    """Per copied eval/extract module: calls of its public functions on
+    NumPy inputs made from a seed, as (name, fn(module) -> result)."""
+    r = np.random.default_rng(12)
+    cloud = r.uniform(0, 1, (300, 3))
+    other = r.uniform(0, 1, (200, 3))
+    dirs = r.normal(size=(300, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    ctrl = r.uniform(0, 1, (4, 3))
+    line = np.linspace(0, 1, 40)[:, None] * r.normal(size=(1, 3)) \
+        + r.normal(scale=0.002, size=(40, 3))
+    scales, quats = r.uniform(0.1, 1, (50, 3)), r.normal(size=(50, 4))
+    K = np.array([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]])
+    R, t = np.eye(3), np.array([[-0.5], [-0.5], [2.0]])
+    return {
+        "eval.neighbors": lambda m: (m.k_nearest_neighbors(other, cloud, 3),
+                                     m.k_nearest_neighbors(other, cloud, 1),
+                                     m.knn_self(cloud, 5)),
+        "eval.metrics": lambda m: (
+            m.chamfer_distance(other, cloud),
+            m.compute_precision_recall_IOU(other, cloud, m.empty_metrics()),
+            m.f_score(0.5, 0.25), m.downsample_point_cloud_average(cloud, 8)),
+        "eval.gt": lambda m: (
+            m.bezier_curve_length(ctrl, 20),
+            m.sample_parametric_edges({"curves_ctl_pts": [ctrl.tolist()],
+                                       "lines_end_pts": [[0, 0, 0, .3, .2,
+                                                          .1]]}, 0.01)),
+        "extract.filtering": lambda m: (
+            m.filter_stat_outliers(cloud, 10, 2.0),
+            m.filter_by_opacity(cloud[:, 0], 0.5),
+            m.project2D_single(K, R, t, cloud),
+            m.filter_by_projection(cloud, [cloud[:48, :2].repeat(32, 1)
+                                           [:, :64]],
+                                   [{"K": K, "R": R, "t": t, "h": 48,
+                                     "w": 64}], 0.2)),
+        "extract.clustering": lambda m: m.cluster_points_using_directions_greedy(
+            cloud, dirs, 0.3, 2, rng=np.random.default_rng(4))[0],
+        "extract.fitting": lambda m: (
+            m.bezier_curve(np.linspace(0, 1, 7), ctrl), m.line_fitting(line),
+            m.ransac_line(line, 0.005, 50, np.random.default_rng(2)),
+            m.bezier_fit(line),
+            m.fit_edges([set(range(40))], line,
+                        np.tile([[1.0, 0, 0]], (40, 1)),
+                        rng=np.random.default_rng(3))[1]),
+        "extract.pipeline": lambda m: m.major_directions_np(scales, quats),
+    }
+
+
+def _assert_same_tree(a, b, where):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _assert_same_tree(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)) and not all(
+            isinstance(x, (int, float, np.number)) for x in a):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_tree(x, y, f"{where}[{i}]")
+    elif isinstance(a, set):
+        assert a == b, where
+    elif a is None:
+        assert b is None, where
+    else:
+        np.testing.assert_allclose(np.asarray(a, dtype=np.float64),
+                                   np.asarray(b, dtype=np.float64),
+                                   rtol=1e-12, atol=0, err_msg=where)
+
+
+@pytest.mark.parametrize("module", list(_copy_cases()))
+def test_numpy_eval_and_extract_copies_match_jax(module):
+    """The port's copies of the JAX package's NumPy-only eval/extract
+    modules give what the originals give, call for call (the KD-tree
+    behind eval.neighbors differs, C++ vs scipy; both are exact)."""
+    import importlib
+    port = importlib.import_module(f"edgegaussians_tpu_torch.{module}")
+    orig = importlib.import_module(f"edgegaussians_tpu.{module}")
+    public = sorted(n for n, v in vars(orig).items()
+                    if callable(v) and not n.startswith("_")
+                    and getattr(v, "__module__", "") == orig.__name__)
+    assert public and all(hasattr(port, n) for n in public), public
+    call = _copy_cases()[module]
+    _assert_same_tree(call(port), call(orig), module)

@@ -198,5 +198,46 @@ def test_cull_wayward_is_a_no_op_unless_applied():
     model, opt = _port_state(a)
     density.cull_wayward(model, cfg)
     _assert_same(model, opt, gs)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        density.cull_wayward(model, ModelConfig(cull_wayward_apply=True))
+    assert torch.equal(model.alive, torch.from_numpy(a["alive"]))
+    # applied, it culls (and clamps every opacity, as every cull does)
+    cfg, jcfg = _configs(cull_wayward_apply=True, reset_opacity_value=0.5)
+    gs, _ = jdensity.cull_wayward(*_jax_state(a), jcfg)
+    density.cull_wayward(model, cfg)
+    _assert_same(model, opt, gs)
+    assert int(model.alive.sum()) < int(a["alive"].sum())
+
+
+# The kNN distances of the two packages differ by ~1e-4 relative (direct
+# differences vs the XLA expansion, tests/test_torch_knn.py) and the PCA
+# eigenvalues by LAPACK rounding; the masks must still be equal, which
+# holds where no statistic sits within that noise of its threshold.
+@pytest.mark.parametrize("method,threshold_type,value", [
+    ("mean_distance", "percentile_top", 0.1),
+    ("mean_distance", "absolute", 0.4),
+    ("max_distance", "percentile_top", 0.2),
+    ("max_distance", "absolute", 0.55),
+    ("pca_ratio", "percentile_top", 0.3),
+    ("pca_ratio", "absolute", 0.6),
+])
+def test_wayward_mask_and_applied_cull_match_jax(method, threshold_type,
+                                                 value):
+    """Every method and threshold type (``pca_ratio`` reads the value as
+    its quantile under either type, as the JAX version does), on 64 slots
+    of which ~38 live, k = 10 neighbours."""
+    a = _arrays(10)
+    kw = dict(cull_wayward_method=method, cull_wayward_num_neighbors=10,
+              cull_wayward_threshold_type=threshold_type,
+              cull_wayward_threshold_value=value, cull_wayward_apply=True,
+              reset_opacity_value=0.5)
+    cfg, jcfg = _configs(**kw)
+    gs, moments = _jax_state(a)
+    j_mask = np.asarray(jdensity.wayward_mask(gs, jcfg))
+    model, opt = _port_state(a)
+    t_mask = density.wayward_mask(model, cfg).numpy()
+    np.testing.assert_array_equal(t_mask, j_mask)
+    live_flagged = int((t_mask & a["alive"]).sum())
+    assert 0 < live_flagged < int(a["alive"].sum())
+    gs, _ = jdensity.cull_wayward(gs, moments, jcfg)
+    density.cull_wayward(model, cfg)
+    _assert_same(model, opt, gs)
+    assert int(model.alive.sum()) == int(a["alive"].sum()) - live_flagged

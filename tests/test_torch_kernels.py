@@ -1,5 +1,6 @@
-"""The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu
-and csrc/raster_v2.cu) held to their plain PyTorch versions, on a GPU.
+"""The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu,
+csrc/raster_v2.cu and csrc/knn.cu) held to their plain PyTorch versions, on
+a GPU.
 
 Every test here needs the card and skips where torch sees none. The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -15,13 +16,18 @@ dense kernels' t_out where the plain value is >= 1e-4 rtol 1e-5, and
 below 1e-4 on both sides elsewhere (its value there depends on the
 implementation, ops/raster_v2.py); whole-rasterizer gradients atol 3e-4,
 rtol 2e-3 (tests/test_pallas_segpair.py's seg tolerances; the pair rows
-reach [N,8] through index_add_ atomics).
+reach [N,8] through index_add_ atomics). The kNN kernel and its plain
+version round every product and sum of d^2 alike and share the tie rule,
+so they agree exactly. The fired view step: parameters rtol 1e-4 and
+moments rtol 5e-3, both with atol 1e-6 of the group's max-abs
+(tests/test_torch_orientation.py's tolerances and projection weight).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from edgegaussians_tpu_torch.ops import knn as knn_mod
 from edgegaussians_tpu_torch.ops import raster_v2, segpair, tiles
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.rasterize import rasterize
@@ -292,3 +298,114 @@ def test_dense_rasterize_on_gpu_matches_cpu_path(device, kw):
             torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
         else:
             torch.testing.assert_close(a, b, rtol=2e-3, atol=3e-4, msg=nm)
+
+
+@pytest.mark.parametrize("n", [257, 4099, 16384])
+@pytest.mark.parametrize("k", [6, 11, 15])
+def test_knn_kernel_matches_plain_version(device, n, k):
+    """Dead rows (every 4th, and a tail past 3/4 of the rows, as a
+    fixed-capacity state has), NaN rows and duplicate rows (ties)."""
+    r = np.random.default_rng(n + k)
+    pts = r.uniform(-1, 1, (n, 3)).astype(np.float32)
+    pts[1::50] = pts[::50][: len(pts[1::50])]          # exact duplicates
+    pts[7, 1] = np.nan
+    mask = np.ones(n, bool)
+    mask[::4] = False
+    mask[3 * n // 4:] = False
+    p, m = torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
+    before = knn_mod.launch_counts["knn"]
+    d_k, i_k = knn_mod.knn(p, k, mask=m)
+    torch.cuda.synchronize()
+    assert knn_mod.launch_counts["knn"] == before + 1
+    d_r, i_r = knn_mod.knn_ref(p, k, mask=m)
+    assert torch.equal(i_k, i_r)
+    assert torch.equal(d_k, d_r)
+    assert bool(m[i_k].all())
+    assert not bool((i_k == torch.arange(n, device=device)[:, None]).any())
+
+
+def test_knn_kernel_dry_slots_and_input_checks(device):
+    pts = torch.rand((40, 3), device=device)
+    mask = torch.zeros(40, dtype=torch.bool, device=device)
+    mask[[2, 9, 33]] = True
+    d, i = knn_mod.knn(pts, 6, mask=mask)
+    torch.cuda.synchronize()
+    d_r, i_r = knn_mod.knn_ref(pts, 6, mask=mask)
+    assert torch.equal(d, d_r) and torch.equal(i, i_r)
+    # live rows find 2 neighbours, dead rows 3; the rest are dry
+    assert bool((d[mask, 2:] == knn_mod.F32_MAX).all())
+    assert bool((i[mask, 2:] == 0).all())
+    assert bool((d[~mask, :3] < 2).all()) and bool((d[~mask, 3:] ==
+                                                     knn_mod.F32_MAX).all())
+    with pytest.raises(ValueError):
+        knn_mod.knn(pts, 17)
+    with pytest.raises(TypeError):
+        knn_mod.knn(pts.double(), 6)
+    with pytest.raises(TypeError):
+        knn_mod.knn(pts, 6, mask=mask.int())
+    with pytest.raises(ValueError):
+        knn_mod.knn(pts, 6, mask=mask.cpu())
+    with pytest.raises(ValueError):
+        knn_mod.knn(pts.t().contiguous().t(), 6)
+
+
+def test_fired_view_step_on_gpu_matches_cpu(device):
+    """One view step at render 5 with both orientation branches firing:
+    the segpair and knn kernels launch once each, and the state matches
+    the CPU path's."""
+    from edgegaussians_tpu_torch.config import config_from_dict
+    from edgegaussians_tpu_torch.models.gaussians import GROUPS
+    from edgegaussians_tpu_torch.train import optim, trainer
+    cfg = config_from_dict({
+        "model": {"init_min_num_gaussians": 300, "max_num_gaussians": 384,
+                  "init_scales_val": 0.03, "init_opacity_val": 0.3,
+                  "tile_gaussian_capacity": 256, "tile_pair_budget": 4096,
+                  "tile_pair_kernel": "seg"},
+        "training": {"loss": {
+            "orientation_losses": {"start_dir_loss_at_epoch": -1,
+                                   "start_ratio_loss_at_epoch": -1,
+                                   "dir_loss_num_nn": 5},
+            "projection_losses": {"lambda_start": 1e-6,
+                                  "lambda_end": 1e-6}}}})
+    means, *_ = _scene(seed=5, n=300)
+    r = np.random.default_rng(6)
+    image = (r.uniform(size=(1, H, W)) > 0.85).astype(np.float32)
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        state = trainer.init_train_state(means, cfg, device=dev)
+        state.step = 4
+        images = torch.from_numpy(image).to(dev)
+        vms = torch.eye(4, device=dev)[None]
+        Ks = torch.tensor([[[55.0, 0, W / 2], [0, 55.0, H / 2], [0, 0, 1]]],
+                          device=dev)
+        before = (segpair.launch_counts["segpair_fwd"],
+                  knn_mod.launch_counts["knn"])
+        trainer.view_step(
+            state, 0, images, images >= 0.5, vms, Ks,
+            proj_grad=trainer.make_proj_grad_fn(cfg, W, H),
+            lrs=optim.all_lrs(cfg.training.optim, 60), lambda_proj=1e-6,
+            bg_ratio=1.0, strategy_idx=0,
+            run_sum=torch.zeros((), device=dev),
+            ol_cfg=cfg.training.loss.orientation_losses, apply_dir=True,
+            apply_ratio=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (segpair.launch_counts["segpair_fwd"],
+                    knn_mod.launch_counts["knn"]) == (before[0] + 1,
+                                                      before[1] + 1)
+        states[dev.type] = state
+    gpu, cpu = states["cuda"], states["cpu"]
+    assert gpu.opt.counts == cpu.opt.counts == {
+        "means": 3, "scales": 3, "quats": 3, "opacities": 1}
+    for g in GROUPS:
+        for what, a, b in (("param", getattr(gpu.model, g),
+                            getattr(cpu.model, g)),
+                           ("mu", gpu.opt.moments[g][0],
+                            cpu.opt.moments[g][0]),
+                           ("nu", gpu.opt.moments[g][1],
+                            cpu.opt.moments[g][1])):
+            a, b = a.detach().cpu(), b.detach()
+            torch.testing.assert_close(
+                a, b, rtol=1e-4 if what == "param" else 5e-3,
+                atol=1e-6 * max(float(b.abs().max()), 1e-30),
+                msg=f"{what} {g}")

@@ -10,7 +10,8 @@
   sign noise in near-zero gradient entries; its arithmetic is the same
   term for term, so rtol 1e-6.
 - The trainer: injected view order, the up-front refusal of unported
-  schedule events, the pair-overflow watermark's actions (the fallback
+  schedule events, schedules with the orientation losses and an applied
+  wayward cull, the pair-overflow watermark's actions (the fallback
   switches to the dense two-level path), and a density event after a
   fallback held to the JAX package's density function on the same state
   (alive exact, parameters and moments within 1e-6).
@@ -246,40 +247,77 @@ def test_train_cli_refuses_mesh_flags(cfg_path):
                         "--mesh_tiles", "2"])
 
 
-WAYWARD = {"if_cull_wayward": True, "cull_wayward_apply": True}
-
-
 @pytest.mark.parametrize("change,match", [
-    (dict(model=dict(WAYWARD, cull_wayward_at_epoch=[1])), "wayward"),
-    (dict(model=dict(WAYWARD, cull_wayward_at_epoch=[0],
-                     cull_wayward_method="pca_ratio")), "wayward"),
-    (dict(orient={"start_dir_loss_at_epoch": 0}), "direction"),
-    (dict(orient={"start_ratio_loss_at_epoch": 0}), "ratio"),
     (dict(model={"staged_capacity": True}), "staged"),
     (dict(training={"step_mode": "view_batch"}), "view_batch"),
 ])
 def test_train_refuses_unported_schedule(cfg_path, change, match):
     _, d = cfg_path(**change.get("model", {}))
     d["training"].update(change.get("training", {}))
-    d["training"]["loss"]["orientation_losses"].update(
-        change.get("orient", {}))
     cfg = config_from_dict(d)
     with pytest.raises(NotImplementedError, match=match):
         trainer.train(None, None, cfg, backend="torch")
 
 
+WAYWARD = {"if_cull_wayward": True, "cull_wayward_apply": True,
+           "cull_wayward_num_neighbors": 6,
+           "cull_wayward_threshold_value": 0.1}
+
+
+@pytest.mark.parametrize("change", [
+    dict(model=dict(WAYWARD, cull_wayward_at_epoch=[1])),
+    dict(model=dict(WAYWARD, cull_wayward_at_epoch=[0],
+                    cull_wayward_method="pca_ratio")),
+    dict(orient={"start_dir_loss_at_epoch": 0}),
+    dict(orient={"start_ratio_loss_at_epoch": 0}),
+], ids=["wayward", "wayward_pca", "direction", "ratio"])
+def test_train_runs_orientation_and_wayward_schedules(cfg_path, change):
+    """The schedules the port refused before it had a kNN: 2 epochs of 3
+    views; a loss starting after epoch 0 fires at render 5 (in epoch 1) and
+    adds one Adam step on the geometry groups only; an applied wayward
+    cull drops live Gaussians."""
+    _, d = cfg_path(**change.get("model", {}))
+    d["training"]["loss"]["orientation_losses"].update(
+        change.get("orient", {}))
+    cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
+    logs = []
+    state = trainer.train(scene, seeds, cfg, backend="torch",
+                          log_fn=logs.append)
+    assert len([x for x in logs if x.startswith("epoch ")]) == 2
+    assert state.step == 2 * VIEWS
+    fired = 1 if "orient" in change else 0
+    assert state.opt.counts == {"means": 6 + fired, "scales": 6 + fired,
+                                "quats": 6 + fired, "opacities": 6}
+    for g in GROUPS:
+        assert torch.isfinite(getattr(state.model, g)).all(), g
+    n_alive = int(state.model.alive.sum())
+    assert n_alive < seeds.shape[0] if "model" in change \
+        else n_alive == seeds.shape[0]
+
+
 def test_shipped_recipe_is_refused_past_its_first_density_epoch():
-    """The recipe's density events are ported: it runs through epoch 100
-    (duplications at 40..100) and is refused from the first epoch of the
-    ratio loss (epochs > 100), whose kNN is not ported yet."""
+    """Every shipped ABC recipe is accepted at its full num_epochs (the
+    ratio loss after epoch 100, the direction loss after 250, their kNN
+    and the wayward cull are ported); staged capacity and the view-batch
+    step mode are still refused."""
+    import dataclasses
+
     from edgegaussians_tpu_torch.config import load_config
-    cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
-                                   "configs", "ABC_DexiNed.json"))
-    cfg.training.num_epochs = 101
-    trainer.check_schedule_is_ported(cfg)
-    cfg.training.num_epochs = 102
-    with pytest.raises(NotImplementedError, match="ratio loss"):
+    for name in ("ABC_DexiNed", "ABC_DexiNed_fast", "ABC_PidiNet"):
+        cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
+                                       "configs", f"{name}.json"))
+        assert cfg.training.num_epochs - 1 > \
+            cfg.training.loss.orientation_losses.start_dir_loss_at_epoch
         trainer.check_schedule_is_ported(cfg)
+        staged = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, staged_capacity=True))
+        with pytest.raises(NotImplementedError, match="staged"):
+            trainer.check_schedule_is_ported(staged)
+        batched = dataclasses.replace(cfg, training=dataclasses.replace(
+            cfg.training, step_mode="view_batch"))
+        with pytest.raises(NotImplementedError, match="view_batch"):
+            trainer.check_schedule_is_ported(batched)
 
 
 def _count_renders(monkeypatch):
