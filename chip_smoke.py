@@ -21,8 +21,17 @@ Phases, in order; any failure exits non-zero:
    rows to 16384, k = 6 (the ABC fetch), 11 and 15, plus a mask with 4
    live rows for the dry slots; times of the kernel, the plain version
    and a cdist + topk yardstick beside the bound.
+   2 (pair): the v4 block-window pair kernels against their plain versions
+   on the same cameras at the recipe's cap 768 and budget 49152, binned
+   with block_tiles 8 (brick-alignment pads present), forward and
+   backward.
+   2 (v1): the v1 log-space kernels against theirs on the cameras'
+   single-level frame at capacity 768 (every tile walks all 768 slots),
+   forward and backward.
    2b: the whole rasterizer on the GPU against the CPU path on a small
-   scene, through the seg, two-level and single-level dispatch.
+   scene, through the seg, two-level and single-level dispatch, the v4
+   pair path, the v1 single-level path and the pair-prefix two-level
+   path.
 3. The seg main path: a synthetic 10-view 800x800 scan trained for 3
    epochs of the ``configs/ABC_DexiNed.json`` recipe through
    ``edgegaussians_tpu_torch.cli.train --backend cuda``, with both seg
@@ -37,6 +46,14 @@ Phases, in order; any failure exits non-zero:
    applied wayward cull at epoch 3: kNN launches = direction fires + 1,
    segpair launches = epochs x views, ``alive`` falls after the cull.
    Then the port's ``cli.fit_edges`` and ``cli.evaluate`` on its output.
+6. The other render paths at full width: the same scan and recipe for
+   3 epochs each with (a) ``tile_pair_kernel: true`` (the v4 pair path:
+   pair launches = epochs x views, no seg launch), (b)
+   ``rasterizer_backend: "pallas_v1"``, ``tile_dense_capacity: 0``,
+   ``tile_pair_budget: 0`` (the v1 single-level path: v1 launches =
+   epochs x views) and (c) ``tile_pair_kernel: false`` with the recipe's
+   budget (the pair-prefix two-level path: v2 launches = 2 x epochs x
+   views), each with finite losses and its steady-epoch Mpx/s.
 
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
@@ -75,13 +92,22 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
-KERNEL_LIBS = ("segpair", "raster_v2", "knn")
+KERNEL_LIBS = ("segpair", "raster_v2", "knn", "pair", "raster_v1")
 EPOCHS = 3
 VIEWS = 10
 FALLBACK_EPOCHS = 5
 FALLBACK_BUDGET = 2048      # below epoch 0's ~6.2k pairs per view
 DUP_EPOCH = 2
 K1, K2, T2 = 128, 640, 128  # the recipe's two-level settings
+CAP, BUDGET = 768, 49152    # the recipe's per-tile cap and pair budget
+PAIR_BLOCK_TILES = 8        # the v4 tables' block (the JAX TILE_BLOCK)
+# phase 6: the recipe's model settings of each other render path
+OTHER_PATHS = {
+    "pair_v4": dict(tile_pair_kernel=True),
+    "single_v1": dict(rasterizer_backend="pallas_v1", tile_dense_capacity=0,
+                      tile_pair_budget=0),
+    "pair_prefix": dict(tile_pair_kernel=False),
+}
 KNN_CAPACITY = 16384        # the ABC recipe's max_num_gaussians
 KNN_KS = (6, 11, 15)        # ABC direction fetch, Replica's, wayward cull
 KNN_RTOL = 1e-6             # kernel vs plain distances (bit-equal by design)
@@ -111,6 +137,9 @@ SFU_OPS = F32_FLOPS / 16
 # and six sums of the per-slot reduction
 FWD_OPS = (16, 1)           # (flops, special-function ops)
 BWD_OPS = (29, 2)
+# the v1 kernels add log1p(-a) and exp(lt - log1p(-a)) per evaluation
+V1_FWD_OPS = (16, 3)
+V1_BWD_OPS = (29, 4)
 # per (query, live key) of the kNN: 3 subs, 3 muls, 2 adds, the dead-key add
 KNN_OPS = (9, 0)
 EPS_T = 1e-4                # transmittance below which a walk stops
@@ -508,6 +537,206 @@ def phase_dense_kernels(device):
     return err, time_kernels(calls, len(cases), bounds), bounds
 
 
+def pair_cases(device):
+    """Per camera: the v4 pair kernels' inputs at the recipe's cap and
+    budget, binned with brick-alignment pads."""
+    from edgegaussians_tpu_torch.ops import pair, tiles
+    cams, w, h, n = fixture_cameras(device)
+    origins = tiles.tile_origins(w, h, 16, device=device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = []
+    with torch.no_grad():
+        for proj, packed in cams:
+            pbins = tiles.bin_pairs_frame_order(
+                proj, w, h, 16, min(CAP, n), BUDGET,
+                max_tiles_per_gaussian=16, block_tiles=PAIR_BLOCK_TILES)
+            src, ox, oy, feats, sfp, counts = pair.pair_prep(
+                packed[pbins.order], pbins, origins)
+            g = torch.rand((sfp.shape[0], 256), generator=gen,
+                           device=device)
+            cases.append(dict(pbins=pbins, src=src, ox=ox, oy=oy,
+                              feats=feats, sfp=sfp, counts=counts, g=g,
+                              n=n))
+    return cases
+
+
+def pair_work(cs, basis):
+    """(fwd bytes, bwd bytes, evaluations) one camera's v4 kernels need:
+    the composited pairs' features, run starts and lengths, basis and
+    [T,256] planes read once, outputs written once; a pixel evaluates a
+    pair while its transmittance before the pair is >= 1e-4."""
+    from edgegaussians_tpu_torch.ops import pair, segpair
+    maxrun, chunks = pair._run_chunks(cs["counts"])
+    evals = 0
+    for r0, r1 in chunks:
+        _, _, t_inc, _, _, slot_valid = segpair.run_alpha(
+            cs["feats"], cs["sfp"][r0:r1], cs["counts"][r0:r1], basis,
+            maxrun)
+        t_before = torch.cat([torch.ones_like(t_inc[:, :1]),
+                              t_inc[:, :-1]], 1)
+        evals += int(((t_before >= EPS_T) & slot_valid[..., None]).sum())
+    T = cs["sfp"].shape[0]
+    kept = int(cs["counts"].sum())
+    plane = T * 256 * 4
+    common = kept * 32 + T * 8 + basis.numel() * 4
+    return common + plane, common + 2 * plane + kept * 32, evals
+
+
+def phase_pair_kernels(device):
+    from edgegaussians_tpu_torch.ops import pair, segpair, tiles
+    log(f"== phase 2 (pair): v4 block-window kernels vs plain versions, "
+        f"fixture at 800x800, cap {CAP}, budget {BUDGET}, block_tiles "
+        f"{PAIR_BLOCK_TILES}")
+    cases = pair_cases(device)
+    basis = tiles.pixel_basis(16, device=device)
+    err = {"pair_fwd": 0.0, "pair_bwd": 0.0}
+    work = np.zeros(3)
+    for c, cs in enumerate(cases):
+        pb = cs["pbins"]
+        args = (cs["feats"], cs["sfp"], cs["counts"], basis)
+        with torch.no_grad():
+            img_k = pair.pair_fwd(*args)
+            img_r = pair.pair_fwd_ref(*args)
+            # both backwards take the plain image as the total, so the
+            # comparison isolates the kernel
+            dfe_k = pair.pair_bwd(*args, cs["g"], img_r)
+            dfe_r = pair.pair_bwd_ref(*args, cs["g"], img_r)
+            torch.cuda.synchronize()
+            valid = pb.pair_valid[:, None]
+            dfe_k = torch.where(valid, dfe_k, torch.zeros_like(dfe_k))
+            outs = [segpair.pair_grads_to_packed(
+                d, cs["src"], cs["ox"], cs["oy"], pb, cs["n"])
+                for d in (dfe_k, dfe_r)]
+            work += pair_work(cs, basis)
+        e_img = (img_k - img_r).abs().max().item()
+        e_dfe = (dfe_k - dfe_r).abs().max().item()
+        err["pair_fwd"] = max(err["pair_fwd"], e_img)
+        err["pair_bwd"] = max(err["pair_bwd"], e_dfe)
+        rel = [rel_err(dfe_k, dfe_r, f"camera {c}: dfeats")]
+        rel += [rel_err(a, b, f"camera {c}: {name}")
+                for name, a, b in zip(("dpacked", "absgrad"), *outs)]
+        pads = int((pb.s_f[1:] - pb.s_f[:-1] - pb.counts_f).sum())
+        log(f"camera {c}: pairs={int(pb.num_pairs)}/{BUDGET} "
+            f"kept={int(cs['counts'].sum())} pads={pads} "
+            f"max_run={int(cs['counts'].max())} img_err={e_img:.3g} "
+            f"dfeats_err={e_dfe:.3g} dfeats_rel={rel[0]:.3g} "
+            f"dpacked_rel={rel[1]:.3g} absgrad_rel={rel[2]:.3g}")
+        check_image(e_img, f"camera {c}")
+
+    def over_cases(fn):
+        return lambda: [fn(cs) for cs in cases]
+
+    for cs in cases:
+        cs["total"] = (0.5 + 0.5 * cs["g"]).contiguous()
+    calls = {
+        "pair_fwd": tuple(over_cases(lambda cs, f=f: f(
+            cs["feats"], cs["sfp"], cs["counts"], basis))
+            for f in (pair.pair_fwd, pair.pair_fwd_ref)),
+        "pair_bwd": tuple(over_cases(lambda cs, f=f: f(
+            cs["feats"], cs["sfp"], cs["counts"], basis, cs["g"],
+            cs["total"])) for f in (pair.pair_bwd, pair.pair_bwd_ref)),
+    }
+    per_cam = work / len(cases)
+    bounds = {"pair_fwd": bound_ms(per_cam[0], per_cam[2], FWD_OPS),
+              "pair_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
+    log(f"per camera: {per_cam[2]:.0f} pair-pixel evaluations, "
+        f"{per_cam[0] / 1e6:.2f} MB (fwd) / {per_cam[1] / 1e6:.2f} MB (bwd)")
+    return err, time_kernels(calls, len(cases), bounds), bounds
+
+
+def v1_cases(device):
+    """Per camera: the v1 kernels' inputs, the single-level frame at
+    capacity 768 (the path ``rasterizer_backend: "pallas_v1"`` runs)."""
+    from edgegaussians_tpu_torch.ops import tiles
+    cams, w, h, n = fixture_cameras(device)
+    origins = tiles.tile_origins(w, h, 16, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = []
+    with torch.no_grad():
+        for proj, packed in cams:
+            bins = tiles.bin_gaussians(proj, w, h, 16, min(CAP, n),
+                                       max_tiles_per_gaussian=16)
+            feats = tiles.build_tile_features(
+                packed[bins.order][bins.ranks], origins,
+                bins.valid.to(torch.float32)).contiguous()
+            g = torch.rand((origins.shape[0], 256), generator=gen,
+                           device=device)
+            cases.append(dict(bins=bins, feats=feats, g=g))
+    return cases
+
+
+def v1_work(cs, basis):
+    """(fwd bytes, bwd bytes, evaluations, walked evaluations) one
+    camera's v1 kernels need: the whole [T,K,8] frame and basis read once,
+    the [T,256] planes and (backward) the [T,K,8] dfeats once; a pixel
+    evaluates a live slot while its log transmittance before the slot is
+    >= log 1e-4. ``walked`` counts every (slot, pixel) of the frame."""
+    from edgegaussians_tpu_torch.ops import raster_v1, raster_v2
+    feats, bins = cs["feats"], cs["bins"]
+    T, K, _ = feats.shape
+    evals = 0
+    for r0, r1 in raster_v2._row_chunks(T, K):
+        alpha, _, _, _ = raster_v1._chunk_terms(feats[r0:r1], basis)
+        log1m = torch.log1p(-alpha)
+        lt_before = torch.cumsum(log1m, dim=1) - log1m
+        evals += int(((lt_before >= raster_v1.LOG_TRANSMITTANCE_EPS)
+                      & bins.valid[r0:r1, :, None]).sum())
+    frame = T * K * 32
+    plane = T * 256 * 4
+    common = frame + basis.numel() * 4
+    return common + plane, common + 2 * plane + frame, evals, T * K * 256
+
+
+def phase_v1_kernels(device):
+    from edgegaussians_tpu_torch.ops import raster_v1, tiles
+    log(f"== phase 2 (v1): v1 log-space kernels vs plain versions, fixture "
+        f"at 800x800, single-level frame at capacity {CAP}")
+    cases = v1_cases(device)
+    basis = tiles.pixel_basis(16, device=device)
+    err = {"raster_v1_fwd": 0.0, "raster_v1_bwd": 0.0}
+    work = np.zeros(4)
+    for c, cs in enumerate(cases):
+        with torch.no_grad():
+            img_k = raster_v1.composite_fwd(cs["feats"], basis)
+            img_r = raster_v1.composite_fwd_ref(cs["feats"], basis)
+            d_k = raster_v1.composite_bwd(cs["feats"], basis, cs["g"], img_r)
+            d_r = raster_v1.composite_bwd_ref(cs["feats"], basis, cs["g"],
+                                              img_r)
+            torch.cuda.synchronize()
+            work += v1_work(cs, basis)
+        e_img = (img_k - img_r).abs().max().item()
+        e_dfe = (d_k - d_r).abs().max().item()
+        err["raster_v1_fwd"] = max(err["raster_v1_fwd"], e_img)
+        err["raster_v1_bwd"] = max(err["raster_v1_bwd"], e_dfe)
+        rel = rel_err(d_k, d_r, f"camera {c}: dfeats")
+        log(f"camera {c}: live slots={int(cs['bins'].valid.sum())} of "
+            f"{cs['feats'].shape[0] * cs['feats'].shape[1]} "
+            f"max_count={int(cs['bins'].counts.max())} img_err={e_img:.3g} "
+            f"dfeats_err={e_dfe:.3g} dfeats_rel={rel:.3g}")
+        check_image(e_img, f"camera {c}")
+
+    def over_cases(fn):
+        return lambda: [fn(cs) for cs in cases]
+
+    for cs in cases:
+        cs["total"] = (0.5 + 0.5 * cs["g"]).contiguous()
+    calls = {
+        "raster_v1_fwd": tuple(over_cases(lambda cs, f=f: f(
+            cs["feats"], basis)) for f in (raster_v1.composite_fwd,
+                                           raster_v1.composite_fwd_ref)),
+        "raster_v1_bwd": tuple(over_cases(lambda cs, f=f: f(
+            cs["feats"], basis, cs["g"], cs["total"]))
+            for f in (raster_v1.composite_bwd, raster_v1.composite_bwd_ref)),
+    }
+    per_cam = work / len(cases)
+    bounds = {"raster_v1_fwd": bound_ms(per_cam[0], per_cam[2], V1_FWD_OPS),
+              "raster_v1_bwd": bound_ms(per_cam[1], per_cam[2], V1_BWD_OPS)}
+    log(f"per camera: {per_cam[2]:.0f} live slot-pixel evaluations of "
+        f"{per_cam[3]:.0f} walked (T x {CAP} x 256), "
+        f"{per_cam[0] / 1e6:.2f} MB (fwd) / {per_cam[1] / 1e6:.2f} MB (bwd)")
+    return err, time_kernels(calls, len(cases), bounds), bounds
+
+
 def knn_inputs(device):
     """The fixture's means as live rows, padded with dead rows (at the
     origin, as a fixed-capacity state's free slots) to the recipe's
@@ -644,6 +873,11 @@ WHOLE_PATHS = {
     "two_level": dict(capacity=64, dense_capacity=16, overflow_tiles=3,
                       occupancy_sort=True, pair_budget=0),
     "single": dict(capacity=64, pair_budget=0),
+    "pair_v4": dict(capacity=256, pair_budget=2048, pair_kernel=True),
+    "single_v1": dict(capacity=64, pair_budget=0, backend="pallas_v1"),
+    "pair_prefix": dict(capacity=64, dense_capacity=16, overflow_tiles=3,
+                        occupancy_sort=True, pair_budget=2048,
+                        pair_kernel=False),
 }
 
 
@@ -709,6 +943,19 @@ def trace_summary(trace_path: str, view_steps: int) -> str:
             + "; ".join(f"{n[:60]} {d / 1e3:.3f}" for n, d in top))
 
 
+def kernel_modules():
+    """The port's kernel modules, each with its ``launch_counts``."""
+    from edgegaussians_tpu_torch.ops import (
+        knn, pair, raster_v1, raster_v2, segpair)
+    return (segpair, raster_v2, knn, pair, raster_v1)
+
+
+def no_launches(**counts):
+    """Every kernel's expected launches: 0 unless given."""
+    zero = {k: 0 for mod in kernel_modules() for k in mod.launch_counts}
+    return dict(zero, **counts)
+
+
 def train_cli_run(tmp: str, scan: str, epochs, tag: str,
                   profile_dir=None, orient=None, views=VIEWS, echo=True,
                   seed=None, **model):
@@ -719,7 +966,6 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     ``profile_dir`` traces epoch 2 and prints its summary; ``echo`` False
     only captures the CLI's output."""
     from edgegaussians_tpu_torch.cli import train as train_cli
-    from edgegaussians_tpu_torch.ops import knn, raster_v2, segpair
     with open(RECIPE) as f:
         cfg = json.load(f)
     if epochs is not None:
@@ -735,9 +981,8 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     captured = io.StringIO()
-    segpair.reset_launch_counts()
-    raster_v2.reset_launch_counts()
-    knn.reset_launch_counts()
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
     argv = ["--config_file", cfg_path, "--scene_name", scan, "--backend",
             "cuda", "--force_rerun"]
     if profile_dir:
@@ -747,8 +992,8 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
                                     else captured):
         rc = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = dict(segpair.launch_counts, **raster_v2.launch_counts,
-                    **knn.launch_counts)
+    launches = {k: v for mod in kernel_modules()
+                for k, v in mod.launch_counts.items()}
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
     if profile_dir:
@@ -790,8 +1035,8 @@ def phase_main_path(tmp: str, scan: str, profile_dir=None):
     text, launches, out_dir, _ = train_cli_run(tmp, scan, EPOCHS, "seg",
                                                profile_dir)
     rows = epoch_lines(text, EPOCHS)
-    expected = {"segpair_fwd": EPOCHS * VIEWS, "segpair_bwd": EPOCHS * VIEWS,
-                "raster_v2_fwd": 0, "raster_v2_bwd": 0, "knn": 0}
+    expected = no_launches(segpair_fwd=EPOCHS * VIEWS,
+                           segpair_bwd=EPOCHS * VIEWS)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the seg main path, "
                              f"expected {expected}")
@@ -819,8 +1064,8 @@ def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
         raise AssertionError(f"fallback warnings for epochs {warn}, "
                              "expected one after epoch 0")
     dense = 2 * VIEWS * (FALLBACK_EPOCHS - 1)
-    expected = {"segpair_fwd": VIEWS, "segpair_bwd": VIEWS,
-                "raster_v2_fwd": dense, "raster_v2_bwd": dense, "knn": 0}
+    expected = no_launches(segpair_fwd=VIEWS, segpair_bwd=VIEWS,
+                           raster_v2_fwd=dense, raster_v2_bwd=dense)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the fallback path, "
                              f"expected {expected}")
@@ -894,8 +1139,8 @@ def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
     fires = direction_fires(ORIENT_EPOCHS, VIEWS,
                             ORIENT_CUTS["start_dir_loss_at_epoch"])
     views = ORIENT_EPOCHS * VIEWS
-    expected = {"segpair_fwd": views, "segpair_bwd": views,
-                "raster_v2_fwd": 0, "raster_v2_bwd": 0, "knn": fires + 1}
+    expected = no_launches(segpair_fwd=views, segpair_bwd=views,
+                           knn=fires + 1)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the orientation path, "
                              f"expected {expected} ({fires} direction "
@@ -913,6 +1158,38 @@ def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
         f"launches={launches} ply={n} Gaussians")
     downstream(tmp, scan, cfg_path, out_dir, "orient")
     return launches, [r[2] for r in rows[1:]]
+
+
+def phase_other_paths(tmp: str, scan: str, profile_dir=None):
+    """Phase 6: the recipe on each other render path; returns each path's
+    launches and steady-epoch Mpx/s."""
+    views = EPOCHS * VIEWS
+    expected = {
+        "pair_v4": no_launches(pair_fwd=views, pair_bwd=views),
+        "single_v1": no_launches(raster_v1_fwd=views, raster_v1_bwd=views),
+        "pair_prefix": no_launches(raster_v2_fwd=2 * views,
+                                   raster_v2_bwd=2 * views),
+    }
+    out = {}
+    for path, model in OTHER_PATHS.items():
+        log(f"== phase 6 ({path}): {EPOCHS} epochs of ABC_DexiNed on the "
+            "same scan; cuts: " + ", ".join(f"{k}={v}" for k, v in
+                                            model.items()))
+        text, launches, out_dir, _ = train_cli_run(
+            tmp, scan, EPOCHS, path, profile_dir, **model)
+        rows = epoch_lines(text, EPOCHS)
+        if launches != expected[path]:
+            raise AssertionError(f"launches {launches} on the {path} path, "
+                                 f"expected {expected[path]}")
+        with open(RECIPE) as f:
+            n_seed = json.load(f)["model"]["init_min_num_gaussians"]
+        n = check_outputs(out_dir, EPOCHS, n_seed)
+        pxs = [r[2] for r in rows[1:]]
+        log(f"{path} path ok: losses={[r[0] for r in rows]} "
+            f"launches={launches} ply={n} Gaussians, steady epochs {pxs} "
+            "Mpx/s")
+        out[path] = (launches, pxs)
+    return out
 
 
 def phase_full(tmp: str):
@@ -952,7 +1229,7 @@ def phase_full(tmp: str):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile_dir", default=None,
-                    help="also trace epoch 2 of phases 3, 4 and 5 here")
+                    help="also trace epoch 2 of phases 3 to 6 here")
     ap.add_argument("--full", action="store_true",
                     help="also run the whole 400-epoch recipe, then "
                          "fit_edges and evaluate")
@@ -968,6 +1245,11 @@ def main() -> int:
     ms.update(ms_d)
     bounds.update(bounds_d)
     err["knn"], ms["knn"], bounds["knn"] = phase_knn_kernel(device)
+    for phase in (phase_pair_kernels, phase_v1_kernels):
+        err_p, ms_p, bounds_p = phase(device)
+        err.update(err_p)
+        ms.update(ms_p)
+        bounds.update(bounds_p)
     phase_whole_path(device)
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     with tempfile.TemporaryDirectory() as tmp:
@@ -982,12 +1264,16 @@ def main() -> int:
                                                         args.profile_dir)
         orient_launches, orient_pxs = phase_orientation_path(
             tmp, scan, args.profile_dir)
+        others = phase_other_paths(tmp, scan, args.profile_dir)
         if args.full:
             phase_full(tmp)
     log(f"steady epochs (epoch >= 1): seg path {seg_pxs} Mpx/s; fallback "
         f"run, dense two-level path {dense_pxs} Mpx/s; orientation path "
-        f"{orient_pxs} Mpx/s")
-    from edgegaussians_tpu_torch.ops import knn, raster_v2, segpair
+        f"{orient_pxs} Mpx/s; "
+        + "; ".join(f"{path} path {pxs} Mpx/s"
+                    for path, (_, pxs) in others.items()))
+    from edgegaussians_tpu_torch.ops import (
+        knn, pair, raster_v1, raster_v2, segpair)
     kernels = []
     for name, source, replaces, launches in (
             ("segpair_fwd", segpair.KERNEL_SOURCE,
@@ -1000,7 +1286,19 @@ def main() -> int:
              "edgegaussians_tpu/ops/pallas_raster_v2.py:146",
              dense_launches),
             ("knn", knn.KERNEL_SOURCE,
-             "edgegaussians_tpu/ops/pallas_knn.py:52", orient_launches)):
+             "edgegaussians_tpu/ops/pallas_knn.py:52", orient_launches),
+            ("pair_fwd", pair.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_pair.py:152",
+             others["pair_v4"][0]),
+            ("pair_bwd", pair.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_pair.py:206",
+             others["pair_v4"][0]),
+            ("raster_v1_fwd", raster_v1.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_raster.py:90",
+             others["single_v1"][0]),
+            ("raster_v1_bwd", raster_v1.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/pallas_raster.py:97",
+             others["single_v1"][0])):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -20,6 +20,12 @@ Two backends:
 A kernel wrapper chooses by the device of the tensor it is given: a CUDA
 tensor launches the kernel or raises, a CPU tensor takes the plain
 version. Nothing falls back from one to the other.
+
+``model.rasterizer_backend`` may also name the JAX package's compositor
+choice, ``"pallas"`` or ``"pallas_v1"``: the device then resolves as for
+``"auto"``, and the name selects the single-level frame's compositor
+(``raster_v2`` or the v1 log-space ``raster_v1``). The JAX package's XLA
+oracle (``"jax"``, ``"reference"``) has no counterpart and is refused.
 """
 
 from __future__ import annotations
@@ -29,17 +35,21 @@ import torch
 __version__ = "0.1.0"
 
 BACKENDS = ("cuda", "torch")
+# configured rasterizer_backend values that choose a compositor
+COMPOSITORS = ("pallas", "pallas_v1")
 
 
 def resolve_backend(backend: str = "auto", configured: str = "auto") -> str:
     """Resolve a backend name as the JAX trainer does (trainer.py:548-551).
 
     ``backend`` is the caller's choice (the CLI flag); ``"auto"`` defers to
-    ``configured`` (``model.rasterizer_backend``), and ``"auto"`` there
-    picks ``"cuda"`` when a GPU is present and ``"torch"`` otherwise.
+    ``configured`` (``model.rasterizer_backend``), and ``"auto"`` there,
+    or a compositor name (see :func:`resolve_compositor`), picks
+    ``"cuda"`` when a GPU is present and ``"torch"`` otherwise.
     """
+    resolve_compositor(configured)          # refuses the XLA oracle
     if backend == "auto":
-        backend = configured
+        backend = "auto" if configured in COMPOSITORS else configured
     if backend == "auto":
         backend = "cuda" if torch.cuda.is_available() else "torch"
     if backend not in BACKENDS:
@@ -48,6 +58,18 @@ def resolve_backend(backend: str = "auto", configured: str = "auto") -> str:
     if backend == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("backend 'cuda' requested but torch sees no GPU")
     return backend
+
+
+def resolve_compositor(configured: str = "auto") -> str:
+    """The compositor a configured ``model.rasterizer_backend`` selects:
+    itself when it names one of :data:`COMPOSITORS`, else ``"pallas"``;
+    the JAX package's XLA oracle is refused."""
+    if configured in ("jax", "reference"):
+        raise ValueError(
+            f"rasterizer_backend {configured!r} names the JAX package's XLA "
+            "oracle, which the port does not have; use 'pallas' or "
+            "'pallas_v1' (compositors) or 'auto'/'cuda'/'torch' (devices)")
+    return configured if configured in COMPOSITORS else "pallas"
 
 
 def backend_device(backend: str) -> torch.device:

@@ -3,8 +3,8 @@
 Counterpart of ``edgegaussians_tpu/ops/composite.py``: the single-level
 ``tile_render`` (composite.py:55-135) and the two-level
 ``tile_render_two_level`` (:315-455), as ``torch.autograd.Function``s over
-the dense compositor of ``ops/raster_v2.py`` (Hopper kernels on CUDA
-tensors, the plain versions on CPU tensors).
+the dense compositors of ``ops/raster_v2.py`` and ``ops/raster_v1.py``
+(Hopper kernels on CUDA tensors, the plain versions on CPU tensors).
 
 Both take the depth-rank-permuted packed rows ``packed_sorted [N,8]``,
 gather each tile's slots by rank, build the per-slot features, composite,
@@ -19,9 +19,13 @@ signed values.
 The two-level path renders every frame row's first k1 slots, then the
 ``t2`` busiest tiles' next k2 slots from the first level's ``t_out``;
 its backward folds the cotangent with the GLOBAL total of both levels,
-which makes each level's gradient account for the other. The JAX
-version's dead ``prior`` argument (composite.py:391) and its ``EG_*``
-layout knobs are not carried over.
+which makes each level's gradient account for the other. Its frame is
+gathered slot by slot from decoded ranks, or, with pair-prefix tables
+(``bins2.pair_rows``), built by scattering the B budget pairs into a zero
+``[T*k1 + t2*k2, 8]`` frame (un-hit slots keep validity 0, so alpha 0);
+that backward gathers the B pairs' rows of the gradient frame and adds
+them by depth rank. The JAX version's dead ``prior`` argument
+(composite.py:391) and its ``EG_*`` layout knobs are not carried over.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from edgegaussians_tpu_torch.ops import raster_v2
+from edgegaussians_tpu_torch.ops import raster_v1, raster_v2
 from edgegaussians_tpu_torch.ops.segpair import build_pair_features_vjp
 from edgegaussians_tpu_torch.ops.tiles import (
     TileBins, TileBinsTwoLevel, build_tile_features)
@@ -75,21 +79,29 @@ class TileRender(torch.autograd.Function):
     """Single-level frame: [T,256] tile intensities in tile order.
 
     ``apply(packed_sorted [N,8], bins: TileBins, origins [T,2],
-    basis [8,256], sink [N,2])``: every tile composites its first
-    min(count, K) slots (composite.py:55-135).
+    basis [8,256], sink [N,2], compositor)``: every tile composites its
+    first min(count, K) slots (composite.py:55-135). ``compositor`` is the
+    JAX backend name it stands for: ``"pallas"`` runs ``raster_v2`` over
+    each tile's live slots, ``"pallas_v1"`` runs ``raster_v1`` over all K
+    slots with the log-space transmittance (composite.py:43-52,94-108).
     """
 
     @staticmethod
-    def forward(ctx, packed_sorted, bins: TileBins, origins, basis, sink):
+    def forward(ctx, packed_sorted, bins: TileBins, origins, basis, sink,
+                compositor="pallas"):
         K = bins.ranks.shape[1]
         counts = torch.clamp(bins.counts, max=K).to(torch.int32)
         gathered = packed_sorted[bins.ranks]                     # [T,K,8]
         validf = bins.valid.to(torch.float32)
         feats = build_tile_features(gathered, origins, validf).contiguous()
         basis = basis.contiguous()
-        img = raster_v2.composite_fwd(feats, counts, basis)
+        if compositor == "pallas":
+            img = raster_v2.composite_fwd(feats, counts, basis)
+        else:
+            img = raster_v1.composite_fwd(feats, basis)
         ctx.bins = bins
         ctx.n = packed_sorted.shape[0]
+        ctx.compositor = compositor
         ctx.save_for_backward(gathered, validf, origins, feats, counts,
                               basis, img)
         return img
@@ -98,12 +110,16 @@ class TileRender(torch.autograd.Function):
     def backward(ctx, g):
         gathered, validf, origins, feats, counts, basis, img = \
             ctx.saved_tensors
-        dfeats = raster_v2.composite_bwd(feats, counts, basis,
-                                         g.contiguous(), img)
+        if ctx.compositor == "pallas":
+            dfeats = raster_v2.composite_bwd(feats, counts, basis,
+                                             g.contiguous(), img)
+        else:
+            dfeats = raster_v1.composite_bwd(feats, basis, g.contiguous(),
+                                             img)
         dg = tile_features_vjp(gathered, origins, validf, dfeats)
         dpacked, dsink = scatter_slot_grads([(dg, validf, ctx.bins.ranks)],
                                         ctx.bins.order, ctx.n)
-        return dpacked, None, None, None, dsink
+        return dpacked, None, None, None, dsink, None
 
 
 def ovf_take(x: torch.Tensor, bins2: TileBinsTwoLevel) -> torch.Tensor:
@@ -128,15 +144,65 @@ class TwoLevelFrame(NamedTuple):
     counts2: torch.Tensor     # [t2] int32
 
 
+def _frame_shape(bins2: TileBinsTwoLevel, k1: int, k2: int):
+    if bins2.pair_rows is None:
+        return bins2.ranks1.shape[1], bins2.ranks2.shape[1]
+    if not (k1 > 0 and k2 > 0):
+        raise ValueError("pair-prefix bins need k1 and k2 at the render "
+                         "call")
+    return k1, k2
+
+
+def pair_prefix_frame(packed_sorted: torch.Tensor, bins2: TileBinsTwoLevel,
+                      k1: int, k2: int):
+    """The B budget pairs' packed rows scattered into a zero
+    ``[T*k1 + t2*k2, 8]`` frame at ``pair_rows`` (composite.py:254-285),
+    as (g1 [T,k1,8], g2 [t2,k2,8]). Rows are unique by construction;
+    dropped pairs land on one extra row that is cut off."""
+    T, t2 = bins2.counts1.shape[0], bins2.ovf_ids.shape[0]
+    n = packed_sorted.shape[0]
+    rows = T * k1 + t2 * k2
+    src = packed_sorted[torch.clamp(bins2.pair_ranks, 0, n - 1)]   # [B,8]
+    frame = packed_sorted.new_zeros((rows + 1, packed_sorted.shape[1]))
+    frame.index_copy_(0, torch.clamp(bins2.pair_rows, max=rows), src)
+    return (frame[:T * k1].reshape(T, k1, -1),
+            frame[T * k1:rows].reshape(t2, k2, -1))
+
+
+def pair_prefix_grads(dg1: torch.Tensor, dg2: torch.Tensor,
+                      bins2: TileBinsTwoLevel, n: int):
+    """(dpacked [N,8] in rank order, dsink [N,2] in Gaussian-id order)
+    from the frame's gradient rows (composite.py:417-434): the B pairs'
+    rows gathered from the gradient frame, [d, |d[:,3:5]|] added by depth
+    rank; pairs past the frame are dropped. Every gathered row is a live
+    slot, so no validity mask enters absgrad."""
+    frame = torch.cat([dg1.reshape(-1, dg1.shape[-1]),
+                       dg2.reshape(-1, dg2.shape[-1])])
+    r_rows = frame.shape[0]
+    rows8 = frame[torch.clamp(bins2.pair_rows, 0, r_rows - 1)]
+    rows = torch.cat([rows8, torch.abs(rows8[:, 3:5])], dim=-1)
+    idx = torch.where(bins2.pair_rows < r_rows, bins2.pair_ranks, n)
+    acc = rows.new_zeros((n + 1, 10))
+    acc.index_add_(0, idx, rows)
+    dsink = rows.new_zeros((n, 2))
+    dsink[bins2.order] = acc[:n, 8:10]
+    return acc[:n, :8], dsink
+
+
 def two_level_frame(packed_sorted: torch.Tensor, bins2: TileBinsTwoLevel,
-                    origins_f: torch.Tensor) -> TwoLevelFrame:
-    """Gather both levels' slots by depth rank and build their features
+                    origins_f: torch.Tensor, k1: int = 0,
+                    k2: int = 0) -> TwoLevelFrame:
+    """Gather both levels' slots, by depth rank or from the pair-prefix
+    tables (then with the static ``k1``/``k2``), and build their features
     (``origins_f`` in frame order)."""
-    k1, k2 = bins2.ranks1.shape[1], bins2.ranks2.shape[1]
+    k1, k2 = _frame_shape(bins2, k1, k2)
     counts1 = bins2.counts1.to(torch.int32)
     counts2 = bins2.counts2.to(torch.int32)
-    g1 = packed_sorted[bins2.ranks1]
-    g2 = packed_sorted[bins2.ranks2]
+    if bins2.pair_rows is not None:
+        g1, g2 = pair_prefix_frame(packed_sorted, bins2, k1, k2)
+    else:
+        g1 = packed_sorted[bins2.ranks1]
+        g2 = packed_sorted[bins2.ranks2]
     validf1 = _slot_validf(counts1, k1)
     validf2 = _slot_validf(counts2, k2)
     origins2 = ovf_take(origins_f, bins2)
@@ -163,17 +229,19 @@ class TileRenderTwoLevel(torch.autograd.Function):
     """Two-level frame: [T,256] intensities in FRAME order.
 
     ``apply(packed_sorted [N,8], bins2: TileBinsTwoLevel, origins_f [T,2]
-    (frame order), basis [8,256], sink [N,2])``: every frame row
+    (frame order), basis [8,256], sink [N,2], k1, k2)``: every frame row
     composites its first k1 slots, the ``t2`` busiest tiles k2 more from
-    the first level's transmittance (composite.py:315-455). Tiles past the
-    overflow budget stay truncated at k1.
+    the first level's transmittance (composite.py:315-455), both on the
+    ``raster_v2`` kernels. Tiles past the overflow budget stay truncated
+    at k1. ``k1``/``k2`` are read from the decoded ranks where there are
+    any; the pair-prefix frame (``bins2.pair_rows``) needs them passed.
     """
 
     @staticmethod
     def forward(ctx, packed_sorted, bins2: TileBinsTwoLevel, origins_f,
-                basis, sink):
+                basis, sink, k1=0, k2=0):
         basis = basis.contiguous()
-        fr = two_level_frame(packed_sorted, bins2, origins_f)
+        fr = two_level_frame(packed_sorted, bins2, origins_f, k1, k2)
         img1, tout1 = raster_v2.composite_fwd_seg(fr.feats1, fr.counts1,
                                                   basis)
         tin2 = ovf_take(tout1, bins2).contiguous()
@@ -192,7 +260,7 @@ class TileRenderTwoLevel(torch.autograd.Function):
         dpacked, dsink = two_level_grads(fr, ctx.bins2, origins_f, basis,
                                          g.contiguous(), tin2, images,
                                          ctx.n)
-        return dpacked, None, None, None, dsink
+        return dpacked, None, None, None, dsink, None, None
 
 
 def two_level_grads(fr: TwoLevelFrame, bins2: TileBinsTwoLevel,
@@ -208,6 +276,8 @@ def two_level_grads(fr: TwoLevelFrame, bins2: TileBinsTwoLevel,
         ovf_take(images, bins2).contiguous())
     dg1 = tile_features_vjp(fr.g1, origins_f, fr.validf1, dfeats1)
     dg2 = tile_features_vjp(fr.g2, fr.origins2, fr.validf2, dfeats2)
+    if bins2.pair_rows is not None:
+        return pair_prefix_grads(dg1, dg2, bins2, n)
     return scatter_slot_grads(
         [(dg1, fr.validf1, bins2.ranks1), (dg2, fr.validf2, bins2.ranks2)],
         bins2.order, n)

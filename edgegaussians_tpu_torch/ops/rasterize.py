@@ -8,21 +8,31 @@ the absgrad signal:
     project (autograd) -> bin (no grad) -> composite (autograd.Function)
     -> frame order to tile order -> assemble [H, W]
 
-The dispatch of rasterize.py:156-222, three paths:
+The dispatch of rasterize.py:156-222, four paths:
 
-- ``pair_kernel="seg"`` with a pair budget: the seg pair path
-  (``SegpairRender``), what the shipped recipes start on;
+- a pair budget with ``pair_kernel="seg"``: the seg pair path
+  (``SegpairRender`` on ``csrc/segpair.cu``), what the shipped recipes
+  start on;
+- a pair budget with ``pair_kernel=True`` (or ``"block"``): the v4
+  block-window pair path (``PairRender`` on ``csrc/pair.cu``, tables
+  binned with ``block_tiles=8``);
 - ``0 < dense_capacity < capacity``: the dense two-level frame
-  (``TileRenderTwoLevel``), where the recipes' 'fallback' overflow
-  action goes;
-- otherwise: the dense single-level frame (``TileRender``).
+  (``TileRenderTwoLevel`` on ``csrc/raster_v2.cu``), where the recipes'
+  'fallback' overflow action goes; with a pair budget and the pair kernel
+  off its frame is built from the pair-prefix tables;
+- otherwise: the dense single-level frame (``TileRender``), on
+  ``raster_v2`` or, with ``backend="pallas_v1"``, on the v1 log-space
+  kernels of ``csrc/raster_v1.cu``.
 
-Two branches are not ported and raise, naming their ROADMAP item: the v4
-block-window pair kernel (``pair_kernel=True`` with a budget) and the
-two-level frame's pair-prefix tables (a pair budget with the pair kernel
-off); band mode raises too. An unknown ``pair_kernel`` value raises (the
-JAX package falls through to the v4 kernel there). Colours are implicitly
-all-ones, so the rendered intensity is the accumulated alpha.
+``backend`` names the JAX package's compositor choice: ``"pallas"`` (the
+default) or ``"pallas_v1"``. It changes only the single-level frame, as in
+the JAX package, whose two-level and pair paths never reach the v1 kernel
+(composite.py:336,384). ``"jax"`` and ``"reference"`` name the JAX
+package's XLA oracle, which has no counterpart here, and are refused.
+Band mode (tile-row sharded rendering, ``parallel/``) is not ported and
+raises; so does an unknown ``pair_kernel`` value (the JAX package falls
+through to the v4 kernel there). Colours are implicitly all-ones, so the
+rendered intensity is the accumulated alpha.
 """
 
 from __future__ import annotations
@@ -31,9 +41,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from edgegaussians_tpu_torch import COMPOSITORS
 from edgegaussians_tpu_torch.ops import tiles as tiles_mod
 from edgegaussians_tpu_torch.ops.composite import (
     TileRender, TileRenderTwoLevel)
+from edgegaussians_tpu_torch.ops.pair import BLOCK_TILES, PairRender
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.segpair import SegpairRender
 from edgegaussians_tpu_torch.ops.tiles import (
@@ -47,7 +59,7 @@ class RenderResult(NamedTuple):
     num_truncated: torch.Tensor  # scalar: Gaussians whose tile footprint
                                  # exceeded max_tiles_per_gaussian
     num_pairs: torch.Tensor      # scalar: true (tile, Gaussian) pair count
-                                 # (the seg path drops pairs past
+                                 # (the pair paths drop pairs past
                                  # pair_budget)
 
 
@@ -68,6 +80,7 @@ def rasterize(
     overflow_tiles: int = 0,
     pair_budget: int = 0,
     pair_kernel="seg",
+    backend: str = "pallas",
     occupancy_sort: bool = False,
     antialiased: bool = True,
     near_plane: float = 0.01,
@@ -90,8 +103,8 @@ def rasterize(
         capacity=capacity, dense_capacity=dense_capacity,
         overflow_tiles=overflow_tiles, pair_budget=pair_budget,
         max_tiles_per_gaussian=max_tiles_per_gaussian,
-        pair_kernel=pair_kernel, occupancy_sort=occupancy_sort,
-        absgrad_sink=absgrad_sink,
+        pair_kernel=pair_kernel, backend=backend,
+        occupancy_sort=occupancy_sort, absgrad_sink=absgrad_sink,
         band_row0=band_row0, band_tile_rows=band_tile_rows)
 
 
@@ -108,6 +121,7 @@ def rasterize_packed(
     pair_budget: int = 0,
     max_tiles_per_gaussian: int = 64,
     pair_kernel="seg",
+    backend: str = "pallas",
     occupancy_sort: bool = False,
     absgrad_sink: Optional[torch.Tensor] = None,
     band_row0=None,
@@ -121,11 +135,13 @@ def rasterize_packed(
     if pair_kernel not in (False, 0, None, True, "block", "seg"):
         raise ValueError(f"unknown pair_kernel {pair_kernel!r} "
                          "(expected 'seg', True/'block' or False)")
+    if backend not in COMPOSITORS:
+        raise ValueError(
+            f"backend {backend!r}: the port composites with 'pallas' (the "
+            "dense v2 kernels) or 'pallas_v1' (the v1 log-space kernels); "
+            "the JAX package's XLA oracle ('jax', 'reference') has no "
+            "counterpart here")
     pair_path = bool(pair_kernel) and pair_budget > 0
-    if pair_path and pair_kernel != "seg":
-        raise NotImplementedError(
-            "pair_kernel=True selects the v4 block-window compositor, not "
-            "ported yet: ROADMAP Queue 2 #4")
 
     n = packed.shape[0]
     dev = packed.device
@@ -136,36 +152,36 @@ def rasterize_packed(
     num_tiles = tiles_mod.tile_grid(width, height, tile_size)[2]
     capacity = min(capacity, n) if n > 0 else capacity
     two_level = 0 < dense_capacity < capacity
-    if not pair_path and two_level and pair_budget > 0:
-        raise NotImplementedError(
-            "the two-level frame's pair-prefix tables (a pair budget with "
-            "the pair kernel off) are not ported yet: ROADMAP Queue 1 #14")
 
     if pair_path:
+        seg = pair_kernel == "seg"
         bins = tiles_mod.bin_pairs_frame_order(
             proj, width, height, tile_size, capacity, pair_budget,
-            max_tiles_per_gaussian=max_tiles_per_gaussian)
-        img_f = SegpairRender.apply(packed[bins.order], bins, origins,
-                                    basis, absgrad_sink)
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            block_tiles=0 if seg else BLOCK_TILES)
+        render = SegpairRender if seg else PairRender
+        img_f = render.apply(packed[bins.order], bins, origins, basis,
+                             absgrad_sink)
         perm, counts, num_pairs = bins.perm, bins.counts, bins.num_pairs
     elif two_level:
         t2 = min(overflow_tiles or max(num_tiles // 4, 8), num_tiles)
+        k1, k2 = dense_capacity, capacity - dense_capacity
         bins = tiles_mod.bin_gaussians_two_level(
-            proj, width, height, tile_size, dense_capacity,
-            capacity - dense_capacity, t2,
+            proj, width, height, tile_size, k1, k2, t2,
             max_tiles_per_gaussian=max_tiles_per_gaussian,
-            occupancy_sort=occupancy_sort)
+            occupancy_sort=occupancy_sort, pair_budget=pair_budget)
         perm = bins.tile_perm
         img_f = TileRenderTwoLevel.apply(
             packed[bins.order], bins,
-            origins if perm is None else origins[perm], basis, absgrad_sink)
+            origins if perm is None else origins[perm], basis, absgrad_sink,
+            k1, k2)
         counts, num_pairs = bins.counts, bins.num_pairs
     else:
         bins = tiles_mod.bin_gaussians(
             proj, width, height, tile_size, capacity,
             max_tiles_per_gaussian=max_tiles_per_gaussian)
         img_f = TileRender.apply(packed[bins.order], bins, origins, basis,
-                                 absgrad_sink)
+                                 absgrad_sink, backend)
         perm, counts, num_pairs = None, bins.counts, bins.counts.sum()
     # frame order -> tile order (autograd turns this into the gather)
     tile_imgs = img_f if perm is None else \

@@ -155,11 +155,17 @@ def _padded_alpha(feats, s_f, basis):
     """Runs gathered into [T, maxrun] slots -> (alpha, ok, t_inc, keep,
     idx, slot_valid), each over [T, maxrun, P] (or [T, maxrun])."""
     counts_f = s_f[1:] - s_f[:-1]
-    T = counts_f.shape[0]
-    maxrun = int(counts_f.max()) if T else 0
+    maxrun = int(counts_f.max()) if counts_f.shape[0] else 0
+    return run_alpha(feats, s_f[:-1], counts_f, basis, maxrun)
+
+
+def run_alpha(feats, starts, counts, basis, maxrun: int):
+    """The runs ``[starts[r], starts[r] + counts[r])`` of ``feats``
+    gathered into [R, maxrun] slots -> (alpha, ok, t_inc, keep, idx,
+    slot_valid), each over [R, maxrun, P] (or [R, maxrun])."""
     slot = torch.arange(maxrun, device=feats.device)
-    slot_valid = slot[None, :] < counts_f[:, None]                # [T,R]
-    idx = torch.where(slot_valid, s_f[:-1, None].long() + slot[None, :],
+    slot_valid = slot[None, :] < counts[:, None]                  # [R,M]
+    idx = torch.where(slot_valid, starts[:, None].long() + slot[None, :],
                       torch.zeros_like(slot)[None, :])
     f = feats[idx]                                                # [T,R,8]
     logalpha = f @ basis                                          # [T,R,P]

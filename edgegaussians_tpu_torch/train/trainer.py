@@ -16,8 +16,8 @@ Not ported yet, and refused up front by :func:`train`: staged capacity
 
 Random draws come from one CPU ``torch.Generator`` seeded with the
 training seed: the per-epoch view permutation (injectable through
-``view_orders``), the bg_edge_ratio scores and the duplication noise
-(injectable through ``density_noise``). Torch cannot reproduce JAX's PRNG
+``view_orders``), the bg_edge_ratio scores (``bg_scores``) and the
+duplication noise (``density_noise``). Torch cannot reproduce JAX's PRNG
 streams, so runs agree with the JAX trainer in distribution, and
 step-level tests inject the JAX draws.
 """
@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from edgegaussians_tpu_torch.config import FrameworkConfig
-from edgegaussians_tpu_torch import backend_device, resolve_backend
+from edgegaussians_tpu_torch import (
+    backend_device, resolve_backend, resolve_compositor)
 from edgegaussians_tpu_torch.models import density, losses
 from edgegaussians_tpu_torch.models.gaussians import (
     GROUPS, GaussianModel, init_state, render_view)
@@ -97,6 +98,7 @@ def make_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int):
         pair_budget=mcfg.tile_pair_budget,
         occupancy_sort=mcfg.tile_occupancy_sort,
         pair_kernel=mcfg.tile_pair_kernel,
+        backend=resolve_compositor(mcfg.rasterizer_backend),
         max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
         antialiased=(mcfg.rasterize_mode == "antialiased"))
 
@@ -175,17 +177,19 @@ def view_step(state: TrainState, view_idx: int, images, edge_masks,
               viewmats, Ks, *, proj_grad, lrs, lambda_proj: float,
               bg_ratio: float, strategy_idx: int, run_sum: torch.Tensor,
               ol_cfg=None, apply_dir: bool = False,
-              apply_ratio: bool = False):
+              apply_ratio: bool = False, bg_scores=None):
     """One render + backward + Adam step on one view (trainer.py:212-241),
     then, every 5th render, the orientation branches.
 
     The reference backprops lambda * loss but logs the raw loss
     (train_gaussians.py:98-101). ``run_sum`` is the epoch's running sum of
     projection losses before this view; returns (stats, the sum with this
-    view's loss)."""
+    view's loss). ``bg_scores`` replaces the bg_edge_ratio strategy's
+    draw from ``state.generator``."""
     model = state.model
-    bg_scores = None
-    if strategy_idx == 1:
+    if strategy_idx != 1:
+        bg_scores = None
+    elif bg_scores is None:
         bg_scores = torch.rand(images[view_idx].numel(),
                                generator=state.generator).to(
                                    images.device)
@@ -207,10 +211,13 @@ def view_step(state: TrainState, view_idx: int, images, edge_masks,
 
 def run_epoch(state: TrainState, epoch: int, images, edge_masks, viewmats,
               Ks, cfg: FrameworkConfig, proj_grad,
-              view_order: Optional[Sequence[int]] = None) -> EpochStats:
+              view_order: Optional[Sequence[int]] = None,
+              bg_scores: Optional[Dict[int, torch.Tensor]] = None
+              ) -> EpochStats:
     """One epoch: every view once, in ``view_order`` (default: a fresh
-    permutation from ``state.generator``). Statistics stay on the device
-    until one transfer at the end."""
+    permutation from ``state.generator``). ``bg_scores[r]``, when given,
+    is render r's bg_edge_ratio draw (r counts renders over the run from
+    0). Statistics stay on the device until one transfer at the end."""
     tcfg = cfg.training
     pl_cfg = tcfg.loss.projection_losses
     num_views = images.shape[0]
@@ -248,7 +255,8 @@ def run_epoch(state: TrainState, epoch: int, images, edge_masks, viewmats,
             state, v, images, edge_masks, viewmats, Ks, proj_grad=proj_grad,
             lrs=lrs, lambda_proj=lambda_proj, bg_ratio=bg_ratio,
             strategy_idx=strategy_idx, run_sum=run_sum, ol_cfg=ol_cfg,
-            apply_dir=apply_dir, apply_ratio=apply_ratio)
+            apply_dir=apply_dir, apply_ratio=apply_ratio,
+            bg_scores=bg_scores.get(state.step) if bg_scores else None)
         peaks = torch.maximum(peaks, torch.stack(
             [stats.max_tile, stats.n_overflow, stats.num_truncated,
              stats.num_pairs]).to(torch.int64))
@@ -365,13 +373,15 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
           initial_state: Optional[TrainState] = None,
           profile_dir: Optional[str] = None, profile_epochs: int = 1,
           view_orders: Optional[List[Sequence[int]]] = None,
-          density_noise: Optional[Dict[int, torch.Tensor]] = None
+          density_noise: Optional[Dict[int, torch.Tensor]] = None,
+          bg_scores: Optional[Dict[int, torch.Tensor]] = None
           ) -> TrainState:
     """Full training run on one scene (train_gaussians.py:144-222).
 
     ``scene`` is a SceneViews. ``view_orders[e]``, when given, replaces
-    epoch e's random view permutation, and ``density_noise[e]`` epoch e's
-    duplication noise. ``profile_dir`` writes a torch.profiler Chrome
+    epoch e's random view permutation, ``density_noise[e]`` epoch e's
+    duplication noise and ``bg_scores[r]`` render r's bg_edge_ratio
+    scores. ``profile_dir`` writes a torch.profiler Chrome
     trace of epochs [2, 2 + profile_epochs).
     """
     check_schedule_is_ported(cfg)
@@ -401,7 +411,8 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
             prof = _start_profiler(device)
         stats = run_epoch(
             state, epoch, images, edge_masks, viewmats, Ks, cfg, proj_grad,
-            view_order=view_orders[epoch] if view_orders else None)
+            view_order=view_orders[epoch] if view_orders else None,
+            bg_scores=bg_scores)
         if prof is not None and epoch + 1 == prof_epochs.stop:
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)

@@ -67,6 +67,22 @@ def test_resolve_backend():
             resolve_backend("cuda")
 
 
+def test_configured_compositor_resolves_the_device_as_auto():
+    from edgegaussians_tpu_torch import resolve_compositor
+    expected = "cuda" if torch.cuda.is_available() else "torch"
+    for name in ("pallas", "pallas_v1"):
+        assert resolve_backend("auto", name) == expected
+        assert resolve_backend("torch", name) == "torch"
+        assert resolve_compositor(name) == name
+    for name in ("auto", "cuda", "torch"):
+        assert resolve_compositor(name) == "pallas"
+    for name in ("jax", "reference"):
+        with pytest.raises(ValueError, match="XLA oracle"):
+            resolve_compositor(name)
+        with pytest.raises(ValueError, match="XLA oracle"):
+            resolve_backend("auto", name)
+
+
 def _images(seed=0, h=24, w=32):
     r = np.random.default_rng(seed)
     pred = r.uniform(0, 1, (h, w)).astype(np.float32)

@@ -77,10 +77,11 @@ def test_bin_gaussians_two_level_matches_jax(case, occupancy_sort):
     bj = jtiles.bin_gaussians_two_level(proj, w, h, 16, **kw)
     bt = tiles.bin_gaussians_two_level(_torch_proj(proj), w, h, 16, **kw)
     for name in bt._fields:
-        if name == "tile_perm" and not occupancy_sort:
-            assert bt.tile_perm is None and bj.tile_perm is None
+        if getattr(bt, name) is None:   # tile_perm unsorted, pair tables
+            assert getattr(bj, name) is None, name
             continue
         _eq(name, getattr(bt, name), getattr(bj, name))
+    assert (bt.tile_perm is None) == (not occupancy_sort)
     assert int(bt.counts2.max()) > 0          # level 2 has work
 
 

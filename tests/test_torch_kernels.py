@@ -1,6 +1,6 @@
 """The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu,
-csrc/raster_v2.cu and csrc/knn.cu) held to their plain PyTorch versions, on
-a GPU.
+csrc/raster_v2.cu, csrc/knn.cu, csrc/pair.cu and csrc/raster_v1.cu) held to
+their plain PyTorch versions, on a GPU.
 
 Every test here needs the card and skips where torch sees none. The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -21,6 +21,9 @@ version round every product and sum of d^2 alike and share the tie rule,
 so they agree exactly. The fired view step: parameters rtol 1e-4 and
 moments rtol 5e-3, both with atol 1e-6 of the group's max-abs
 (tests/test_torch_orientation.py's tolerances and projection weight).
+The v4 pair and v1 kernels: image atol 1e-5, dfeats 1e-4 of the plain
+version's max-abs (their suffix ``(total - c_inc) / (1 - alpha)`` carries
+the running sums' last-bit differences, up to 1000x at alpha near 0.999).
 """
 
 import numpy as np
@@ -28,7 +31,8 @@ import pytest
 import torch
 
 from edgegaussians_tpu_torch.ops import knn as knn_mod
-from edgegaussians_tpu_torch.ops import raster_v2, segpair, tiles
+from edgegaussians_tpu_torch.ops import (
+    pair, raster_v1, raster_v2, segpair, tiles)
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.rasterize import rasterize
 
@@ -409,3 +413,180 @@ def test_fired_view_step_on_gpu_matches_cpu(device):
                 a, b, rtol=1e-4 if what == "param" else 5e-3,
                 atol=1e-6 * max(float(b.abs().max()), 1e-30),
                 msg=f"{what} {g}")
+
+
+def _pair_runs(seed, counts, pads=(0, 3, 0, 77, 1)):
+    """Features [B,8] of runs with the given lengths, each followed by pad
+    rows that hold an opaque Gaussian at the tile's centre: a kernel that
+    read past a run's count would show it in the image. Returns (feats,
+    sfp, counts, walked-row mask)."""
+    r = np.random.default_rng(seed)
+    pads = np.resize(np.asarray(pads), len(counts))
+    starts = np.concatenate([[0], np.cumsum(np.asarray(counts) + pads)])
+    B = int(starts[-1]) + 5
+    a = r.uniform(0.05, 0.8, B)
+    c = r.uniform(0.05, 0.8, B)
+    b = r.uniform(-0.1, 0.1, B) * np.sqrt(a * c)
+    mx, my = r.uniform(-4.0, 20.0, (2, B))
+    logop = np.log(r.uniform(0.05, 0.95, B))
+    walked = np.zeros(B, bool)
+    for s0, n in zip(starts[:-1], counts):
+        walked[s0:s0 + n] = True
+    a[~walked], c[~walked], b[~walked] = 0.01, 0.01, 0.0
+    mx[~walked], my[~walked], logop[~walked] = 8.0, 8.0, np.log(0.99)
+    amx_bmy = a * mx + b * my
+    bmx_cmy = b * mx + c * my
+    const = -0.5 * (amx_bmy * mx + bmx_cmy * my) + logop
+    feats = np.stack([-0.5 * a, -b, -0.5 * c, amx_bmy, bmx_cmy, const,
+                      logop, np.zeros(B)], axis=-1).astype(np.float32)
+    return (feats, starts[:-1].astype(np.int32),
+            np.asarray(counts, np.int32), walked)
+
+
+# run lengths 0, 1, 127, 128 and 769 (past the cap of 768), long runs
+# that saturate pixels, pads between runs
+PAIR_RUNS = {"edges": (0, [0, 1, 127, 128, 769]),
+             "long": (1, [640, 300, 0, 768, 2, 513, 129])}
+
+
+@pytest.mark.parametrize("name", list(PAIR_RUNS))
+def test_pair_kernels_match_plain_versions(device, name):
+    seed, runs = PAIR_RUNS[name]
+    feats, sfp, counts, walked = (torch.from_numpy(x).to(device)
+                                  for x in _pair_runs(seed, runs))
+    basis = tiles.pixel_basis(16, device=device)
+    R = sfp.shape[0]
+    img_k = pair.pair_fwd(feats, sfp, counts, basis)
+    torch.cuda.synchronize()
+    img_r = pair.pair_fwd_ref(feats, sfp, counts, basis)
+    torch.testing.assert_close(img_k, img_r, rtol=0, atol=1e-5)
+    assert bool((img_k[counts == 0] == 0).all())
+    assert float(img_k.max()) > 0.999            # saturated pixels
+    gen = torch.Generator(device=device).manual_seed(0)
+    g = torch.rand((R, 256), generator=gen, device=device) - 0.5
+    d_k = pair.pair_bwd(feats, sfp, counts, basis, g, img_r)
+    torch.cuda.synchronize()
+    d_r = pair.pair_bwd_ref(feats, sfp, counts, basis, g, img_r)
+    scale = float(d_r.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(d_k[walked], d_r[walked], rtol=0,
+                               atol=1e-4 * scale)
+    assert bool((d_k[walked][:, 6:] == 0).all())
+
+
+def test_pair_wrappers_count_launches_and_check_inputs(device):
+    feats, sfp, counts, _ = (torch.from_numpy(x).to(device)
+                             for x in _pair_runs(2, [5, 40, 0]))
+    basis = tiles.pixel_basis(16, device=device)
+    g = torch.zeros((3, 256), device=device)
+    before = dict(pair.launch_counts)
+    img = pair.pair_fwd(feats, sfp, counts, basis)
+    pair.pair_bwd(feats, sfp, counts, basis, g, img)
+    pair.pair_fwd(feats.cpu(), sfp.cpu(), counts.cpu(), basis.cpu())
+    assert pair.launch_counts == {"pair_fwd": before["pair_fwd"] + 1,
+                                  "pair_bwd": before["pair_bwd"] + 1}
+    with pytest.raises(TypeError):
+        pair.pair_fwd(feats.double(), sfp, counts, basis)
+    with pytest.raises(TypeError):
+        pair.pair_fwd(feats, sfp, counts.long(), basis)
+    with pytest.raises(ValueError):
+        pair.pair_fwd(feats, sfp, counts[:2], basis)
+    with pytest.raises(ValueError):
+        pair.pair_fwd(feats, sfp.cpu(), counts, basis)
+    with pytest.raises(ValueError):
+        pair.pair_bwd(feats, sfp, counts, basis, g[:2], img)
+
+
+# (seed, tiles, K, counts of valid slots): K below, at and past the
+# kernels' staging batches, 769 as past the fixture's cap of 768
+V1_FRAMES = {"k64": dict(seed=3, t=12, k=64, counts=(0, 1, 64, 30)),
+             "k300": dict(seed=4, t=10, k=300, counts=(300, 0, 127, 128,
+                                                      257)),
+             "k769": dict(seed=5, t=8, k=769, counts=(769, 500, 1))}
+
+
+@pytest.mark.parametrize("name", list(V1_FRAMES))
+def test_raster_v1_kernels_match_plain_versions(device, name):
+    feats, _, _, g = (torch.from_numpy(x).to(device)
+                      for x in _random_frame(**V1_FRAMES[name]))
+    basis = tiles.pixel_basis(16, device=device)
+    img_k = raster_v1.composite_fwd(feats, basis)
+    torch.cuda.synchronize()
+    img_r = raster_v1.composite_fwd_ref(feats, basis)
+    torch.testing.assert_close(img_k, img_r, rtol=0, atol=1e-5)
+    d_k = raster_v1.composite_bwd(feats, basis, g, img_r)
+    torch.cuda.synchronize()
+    d_r = raster_v1.composite_bwd_ref(feats, basis, g, img_r)
+    scale = float(d_r.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(d_k, d_r, rtol=0, atol=1e-4 * scale)
+    assert bool((d_k[..., 6:] == 0).all())
+    if name == "k769":
+        assert float(img_k.max()) > 0.999
+
+
+def test_raster_v1_wrappers_count_launches_and_check_inputs(device):
+    feats, _, _, g = (torch.from_numpy(x).to(device)
+                      for x in _random_frame(6, t=8, k=64))
+    basis = tiles.pixel_basis(16, device=device)
+    before = dict(raster_v1.launch_counts)
+    img = raster_v1.composite_fwd(feats, basis)
+    raster_v1.composite_bwd(feats, basis, g, img)
+    raster_v1.composite_fwd(feats.cpu(), basis.cpu())
+    assert raster_v1.launch_counts == {
+        "raster_v1_fwd": before["raster_v1_fwd"] + 1,
+        "raster_v1_bwd": before["raster_v1_bwd"] + 1}
+    with pytest.raises(TypeError):
+        raster_v1.composite_fwd(feats.double(), basis)
+    with pytest.raises(ValueError):
+        raster_v1.composite_fwd(feats[:, ::2], basis)
+    with pytest.raises(ValueError):
+        raster_v1.composite_fwd(feats, basis.cpu())
+    with pytest.raises(ValueError):
+        raster_v1.composite_bwd(feats, basis, g[:2], img)
+
+
+# the three paths of this slice: the v4 pair kernel, the v1 single-level
+# compositor and the two-level frame from the pair-prefix tables
+NEW_PATHS = {
+    "pair_v4": (dict(capacity=256, pair_budget=2048, pair_kernel=True),
+                {"pair_fwd": 1, "pair_bwd": 1}),
+    "single_v1": (dict(capacity=64, pair_budget=0, backend="pallas_v1"),
+                  {"raster_v1_fwd": 1, "raster_v1_bwd": 1}),
+    "pair_prefix": (dict(capacity=64, dense_capacity=16, overflow_tiles=3,
+                         occupancy_sort=True, pair_budget=2048,
+                         pair_kernel=False),
+                    {"raster_v2_fwd": 2, "raster_v2_bwd": 2}),
+}
+
+
+@pytest.mark.parametrize("path", list(NEW_PATHS))
+def test_new_paths_on_gpu_match_cpu_path(device, path):
+    kw, launches = NEW_PATHS[path]
+    arrays = _scene(**SCENES["cluster"][0])
+
+    def grads(dev):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        params = [x.requires_grad_() for x in t[:4]]
+        sink = torch.zeros((t[0].shape[0], 2), device=dev,
+                           requires_grad=True)
+        out = rasterize(*params, t[4], t[5], W, H, absgrad_sink=sink, **kw)
+        img = torch.clamp(out.image, 0, 1)
+        w = (torch.arange(img.numel(), device=dev, dtype=torch.float32)
+             .reshape(img.shape) % 7) / 7.0 + 0.3
+        g = torch.autograd.grad((img * w).sum(), params + [sink])
+        return [out.image.detach().cpu()] + [x.cpu() for x in g]
+
+    mods = (pair, raster_v1, raster_v2, segpair)
+    before = {k: v for m in mods for k, v in m.launch_counts.items()}
+    on_gpu = grads(device)
+    after = {k: v for m in mods for k, v in m.launch_counts.items()}
+    assert {k: after[k] - before[k] for k in after} == dict(
+        {k: 0 for k in after}, **launches)
+    names = ("image", "means", "quats", "scales", "opacities", "absgrad")
+    for nm, a, b in zip(names, on_gpu, grads(torch.device("cpu"))):
+        assert torch.isfinite(a).all(), nm
+        if nm == "image":
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-3, atol=3e-4, msg=nm)

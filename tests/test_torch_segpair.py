@@ -214,15 +214,21 @@ def test_build_pair_features_vjp_matches_autograd():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    # the two-level frame's pair-prefix tables
-    (dict(pair_kernel=False, pair_budget=1024, dense_capacity=4),
-     NotImplementedError),
+    # band mode is refused on every path: the pair-prefix two-level frame,
+    (dict(pair_kernel=False, pair_budget=1024, dense_capacity=4,
+          band_tile_rows=1), NotImplementedError),
     (dict(pair_kernel="seg", pair_budget=0, band_row0=0),
      NotImplementedError),
-    (dict(pair_kernel=True, pair_budget=1024), NotImplementedError),
+    # the v4 pair path,
+    (dict(pair_kernel=True, pair_budget=1024, band_row0=0),
+     NotImplementedError),
     (dict(pair_kernel="segg", pair_budget=1024), ValueError),
+    # the seg path
     (dict(pair_kernel="seg", pair_budget=1024, band_tile_rows=1),
      NotImplementedError),
+    # the JAX package's XLA oracle has no counterpart
+    (dict(pair_budget=0, backend="jax"), ValueError),
+    (dict(pair_budget=0, backend="reference"), ValueError),
 ])
 def test_unported_rasterizer_branches_raise(kwargs, err):
     *args, w, h = _scene(n=8)

@@ -114,18 +114,46 @@ def _scene_and_seeds(cfg):
 
 def test_view_step_matches_jax(cfg_path):
     _, d = cfg_path()
+    _check_view_steps(d, "jax", (0, 1, 2))   # whole, bg, weighted
+
+
+# the other render paths' model settings and the JAX backend that runs
+# the same compositor on the CPU: (a) the v4 pair kernel in interpret
+# mode, (b) the v1 single-level frame, (c) the pair-prefix two-level frame
+OTHER_PATHS = {
+    "pair_v4": (dict(tile_pair_kernel=True), "jax"),
+    "single_v1": (dict(rasterizer_backend="pallas_v1", tile_dense_capacity=0,
+                       tile_pair_budget=0), "pallas_v1"),
+    "pair_prefix": (dict(tile_pair_kernel=False, tile_dense_capacity=16),
+                    "jax"),
+}
+
+
+@pytest.mark.parametrize("path", list(OTHER_PATHS))
+def test_view_step_on_the_other_render_paths_matches_jax(cfg_path, path):
+    """One view step of each render path this slice adds, with the same
+    tolerances as the seg path's."""
+    model, backend = OTHER_PATHS[path]
+    _, d = cfg_path(**model)
+    _check_view_steps(d, backend, (0,))
+
+
+def _check_view_steps(d, backend, strategies):
+    """View steps 0.. of ``strategies`` from the same state through the
+    JAX ``make_proj_grad_fn(cfg, W, H, backend)`` and the port's, then
+    Adam on the JAX gradients."""
     cfg = config_from_dict(d)
     scene, seeds = _scene_and_seeds(cfg)
     images = np.asarray(scene.images, np.float32)
     edges = images >= cfg.model.edge_detection_threshold
     ts = jtrainer.init_train_state(seeds, cfg)
-    jproj = jax.jit(jtrainer.make_proj_grad_fn(cfg, W, H, "jax"))
+    jproj = jax.jit(jtrainer.make_proj_grad_fn(cfg, W, H, backend))
     tproj = trainer.make_proj_grad_fn(cfg, W, H)
     epoch = 1
     lrs_j = joptim.all_lrs(cfg.training.optim, jnp.int32(epoch))
     lrs_t = optim.all_lrs(cfg.training.optim, epoch)
     key = jax.random.PRNGKey(5)
-    for v, strategy in zip(range(VIEWS), (0, 1, 2)):   # whole, bg, weighted
+    for v, strategy in zip(range(VIEWS), strategies):
         key, k_bg = jax.random.split(key)
         state = convert.state_from_arrays(_jax_flat(ts))
         # the port's state is the JAX state: init parity, then carry-over
@@ -146,7 +174,8 @@ def test_view_step_matches_jax(cfg_path):
             state.model, torch.from_numpy(scene.viewmats[v]),
             torch.from_numpy(scene.Ks[v]), torch.from_numpy(images[v]),
             torch.from_numpy(edges[v]), strategy, 1.0, scores)
-        assert int(st.num_pairs) == int(sj.num_pairs) > 0
+        if sj.num_pairs is not None:    # None on the single-level frame
+            assert int(st.num_pairs) == int(sj.num_pairs) > 0
         assert int(st.max_tile) == int(sj.max_tile)
         assert int(st.n_overflow) == int(sj.n_overflow)
         assert int(st.num_truncated) == int(sj.num_truncated)
@@ -365,6 +394,78 @@ def test_pair_overflow_actions(cfg_path, monkeypatch, action, err):
         assert calls == {"seg": VIEWS, "two_level": VIEWS}
         assert logs[-1].startswith("epoch 1: ") and "pairs=" in logs[-1]
         assert float(logs[-1].split("loss=")[1].split()[0]) > 0
+
+
+def _count_all_renders(monkeypatch):
+    """Count each compositor's calls, and which single-level compositor."""
+    from edgegaussians_tpu_torch.ops import rasterize as rz
+    calls = {}
+    for fn_name in ("SegpairRender", "PairRender", "TileRenderTwoLevel",
+                    "TileRender"):
+        fn = getattr(rz, fn_name)
+
+        class Counted(fn):
+            @classmethod
+            def apply(cls, *args, _name=fn_name):
+                key = _name if _name != "TileRender" else \
+                    f"TileRender/{args[-1]}"
+                calls[key] = calls.get(key, 0) + 1
+                return super().apply(*args)
+
+        monkeypatch.setattr(rz, fn_name, Counted)
+    return calls
+
+
+@pytest.mark.parametrize("path", list(OTHER_PATHS))
+def test_train_runs_the_other_render_paths(cfg_path, monkeypatch, path):
+    """Configs with ``tile_pair_kernel: true``, ``rasterizer_backend:
+    "pallas_v1"`` or the pair kernel off under a pair budget load and
+    train in the port's trainer, every render on their compositor."""
+    model, _ = OTHER_PATHS[path]
+    _, d = cfg_path(**model)
+    cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
+    calls = _count_all_renders(monkeypatch)
+    logs = []
+    state = trainer.train(scene, seeds, cfg, backend="torch",
+                          log_fn=logs.append)
+    renders = 2 * VIEWS
+    expected = {"pair_v4": {"PairRender": renders},
+                "single_v1": {"TileRender/pallas_v1": renders},
+                "pair_prefix": {"TileRenderTwoLevel": renders}}[path]
+    assert calls == expected
+    assert state.step == renders
+    losses = [float(x.split("loss=")[1].split()[0]) for x in logs
+              if x.startswith("epoch ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert ("pairs=" in logs[0]) == (path != "single_v1")
+
+
+def test_train_refuses_the_xla_oracle_backend(cfg_path):
+    path, d = cfg_path(rasterizer_backend="jax")
+    cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
+    with pytest.raises(ValueError, match="XLA oracle"):
+        trainer.train(scene, seeds, cfg, backend="torch")
+    with pytest.raises(ValueError, match="XLA oracle"):
+        train_cli.main(["--config_file", path, "--scene_name", SCAN])
+
+
+def test_pair_overflow_fallback_from_the_v4_path(cfg_path, monkeypatch):
+    """The 'fallback' action rebuilds a ``tile_pair_kernel: true`` run
+    with ``tile_pair_budget=0`` as for the seg kernel (trainer.py:716-738):
+    epoch 0 overflows on the v4 path, epoch 1 renders on the dense
+    two-level frame."""
+    _, d = cfg_path(tile_pair_budget=16, tile_pair_kernel=True,
+                    tile_pair_overflow_action="fallback",
+                    tile_dense_capacity=16)
+    cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
+    calls = _count_all_renders(monkeypatch)
+    logs = []
+    trainer.train(scene, seeds, cfg, backend="torch", log_fn=logs.append)
+    assert sum("switching to the dense frame path" in x for x in logs) == 1
+    assert calls == {"PairRender": VIEWS, "TileRenderTwoLevel": VIEWS}
 
 
 def test_density_event_after_a_fallback_matches_jax(cfg_path, tmp_path):
