@@ -54,6 +54,29 @@ Phases, in order; any failure exits non-zero:
    epochs x views) and (c) ``tile_pair_kernel: false`` with the recipe's
    budget (the pair-prefix two-level path: v2 launches = 2 x epochs x
    views), each with finite losses and its steady-epoch Mpx/s.
+7. Multi-rank training (``parallel/``):
+   (a) band mode on the card: the 5 fixture cameras at the seg recipe's
+   settings split into 4 bands of 13 tile rows (padded height 832); the
+   bands' images must be the full render's rows, their partial losses
+   (three strategies, bg scores drawn once) sum to the full losses, their
+   gradients sum to the full gradients and the norm of their summed sinks
+   is the full absgrad; 20 launches of each seg kernel;
+   (b) ``step_mode: "view_batch"``, ``view_batch_size: 5``, 3 epochs
+   through the CLI with no mesh: seg launches = epochs x views, 2 batch
+   steps per epoch;
+   (c) several ranks on the one card (``torch.distributed.run``, Gloo on
+   the card's tensors) of ``scripts/torch_multiprocess_worker.py``, which
+   runs the shard-sum probe (the kernel on each rank's 16384-row shard of
+   one array, then an all-reduce) and a probe of which collectives Gloo
+   takes on CUDA tensors, then the CLI in the same group with
+   ``--mesh_tiles 2``, then ``--mesh_gauss 2``, ``--mesh_views 2``
+   (batches of 2) and, on 4 ranks, ``--mesh_views 2 --mesh_tiles 2``, 3
+   epochs each with ratio fires and a duplication: all ranks' final
+   states bit for bit equal, epoch losses within 2e-3 relative (plus the
+   log's last digit) of a single-process run of the same config in this
+   call; then ``--mesh_gauss 1`` on one NCCL rank. The shard-sum kernel
+   is also timed on one [16384, 128] shard beside its plain version and
+   ``torch.sum``.
 
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
@@ -92,7 +115,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
-KERNEL_LIBS = ("segpair", "raster_v2", "knn", "pair", "raster_v1")
+KERNEL_LIBS = ("segpair", "raster_v2", "knn", "pair", "raster_v1",
+               "shard_sum")
 EPOCHS = 3
 VIEWS = 10
 FALLBACK_EPOCHS = 5
@@ -143,6 +167,20 @@ V1_BWD_OPS = (29, 4)
 # per (query, live key) of the kNN: 3 subs, 3 muls, 2 adds, the dead-key add
 KNN_OPS = (9, 0)
 EPS_T = 1e-4                # transmittance below which a walk stops
+# phase 7: 4 bands of cdiv(50, 4) = 13 tile rows; view batches of 5;
+# the multi-rank runs' cuts (ratio loss fires from epoch 1, a
+# duplication of the top 5% by absgrad after epoch 1)
+BANDS = 4
+VIEW_BATCH = 5
+MULTI_ORIENT = dict(start_ratio_loss_at_epoch=0)
+MULTI_MODEL = dict(dup_high_pos_grads_at_epoch=[1],
+                   dup_threshold_type="top_fraction",
+                   dup_threshold_value=0.05)
+MULTI_BATCH = 2             # view batches of the --mesh_views 2 run
+MULTI_LOSS_RTOL = 2e-3      # epoch losses, multi-rank vs one process
+WORKER = os.path.join(REPO, "scripts", "torch_multiprocess_worker.py")
+RANKS_TIMEOUT = 300
+SHARD_ROWS = 16384          # rows of the probe's shard per rank
 
 
 def log(msg: str = "") -> None:
@@ -946,8 +984,8 @@ def trace_summary(trace_path: str, view_steps: int) -> str:
 def kernel_modules():
     """The port's kernel modules, each with its ``launch_counts``."""
     from edgegaussians_tpu_torch.ops import (
-        knn, pair, raster_v1, raster_v2, segpair)
-    return (segpair, raster_v2, knn, pair, raster_v1)
+        knn, pair, raster_v1, raster_v2, segpair, shard_sum)
+    return (segpair, raster_v2, knn, pair, raster_v1, shard_sum)
 
 
 def no_launches(**counts):
@@ -956,16 +994,12 @@ def no_launches(**counts):
     return dict(zero, **counts)
 
 
-def train_cli_run(tmp: str, scan: str, epochs, tag: str,
-                  profile_dir=None, orient=None, views=VIEWS, echo=True,
-                  seed=None, **model):
-    """Train the recipe on ``scan`` through the CLI with every launch
-    count set to 0 just before; returns (log text, launches read just
-    after, output dir, config path). ``epochs`` and ``seed`` None keep
-    the recipe's; ``orient`` updates its orientation losses.
-    ``profile_dir`` traces epoch 2 and prints its summary; ``echo`` False
-    only captures the CLI's output."""
-    from edgegaussians_tpu_torch.cli import train as train_cli
+def write_config(tmp: str, epochs, tag: str, orient=None, seed=None,
+                 training=None, **model):
+    """The recipe cut for a run tagged ``tag``, written to
+    ``<tmp>/<tag>.json``; returns (config dict, path). ``epochs`` and
+    ``seed`` None keep the recipe's; ``orient`` updates its orientation
+    losses, ``training`` its training section, ``model`` its model."""
     with open(RECIPE) as f:
         cfg = json.load(f)
     if epochs is not None:
@@ -973,6 +1007,7 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     if seed is not None:
         cfg["training"]["seed"] = seed
     cfg["model"].update(model)
+    cfg["training"].update(training or {})
     cfg["training"]["loss"]["orientation_losses"].update(orient or {})
     cfg["data"]["base_dir"] = os.path.join(tmp, "data") + "/"
     for k in ("output_dir", "checkpoint_dir", "log_dir"):
@@ -980,6 +1015,26 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     cfg_path = os.path.join(tmp, f"{tag}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
+    return cfg, cfg_path
+
+
+def run_dir(cfg: dict, scan: str) -> str:
+    return os.path.join(cfg["output"]["output_dir"],
+                        f"{cfg['output']['exp_name']}_"
+                        f"{cfg['data']['edge_detection_method']}", scan)
+
+
+def train_cli_run(tmp: str, scan: str, epochs, tag: str,
+                  profile_dir=None, orient=None, views=VIEWS, echo=True,
+                  seed=None, training=None, **model):
+    """Train the recipe on ``scan`` through the CLI with every launch
+    count set to 0 just before; returns (log text, launches read just
+    after, output dir, config path). See :func:`write_config` for the
+    cuts. ``profile_dir`` traces epoch 2 and prints its summary; ``echo``
+    False only captures the CLI's output."""
+    from edgegaussians_tpu_torch.cli import train as train_cli
+    cfg, cfg_path = write_config(tmp, epochs, tag, orient=orient, seed=seed,
+                                 training=training, **model)
     captured = io.StringIO()
     for mod in kernel_modules():
         mod.reset_launch_counts()
@@ -999,10 +1054,7 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     if profile_dir:
         log(f"{tag} path, epoch 2 traced: " + trace_summary(
             os.path.join(profile_dir, tag, "trace.json"), views))
-    out_dir = os.path.join(cfg["output"]["output_dir"],
-                           f"{cfg['output']['exp_name']}_"
-                           f"{cfg['data']['edge_detection_method']}", scan)
-    return captured.getvalue(), launches, out_dir, cfg_path
+    return captured.getvalue(), launches, run_dir(cfg, scan), cfg_path
 
 
 def epoch_lines(text: str, epochs: int):
@@ -1192,6 +1244,296 @@ def phase_other_paths(tmp: str, scan: str, profile_dir=None):
     return out
 
 
+def phase_band_mode(device):
+    """Phase 7a: four bands of each fixture camera against its full render
+    at the seg recipe's settings; returns the band renders' launches."""
+    from edgegaussians_tpu_torch.models import losses
+    from edgegaussians_tpu_torch.ops import segpair
+    from edgegaussians_tpu_torch.ops.rasterize import rasterize
+    from edgegaussians_tpu_torch.parallel import bands
+    d = np.load(FIXTURE)
+    w, h = int(d["width"]), int(d["height"])
+    rows_per, band_h, pad_h = bands.band_geometry(w, h, 16, BANDS)
+    log(f"== phase 7a: band mode on the card, 5 fixture cameras at "
+        f"800x800 in {BANDS} bands of {rows_per} tile rows (padded height "
+        f"{pad_h}), seg path at cap {CAP}, budget {BUDGET}")
+    n = d["means"].shape[0]
+    base = [torch.from_numpy(d[k].astype(np.float32)).to(device)
+            for k in ("means", "quats", "scales")]
+    base.append(torch.from_numpy(d["opacities"].astype(np.float32))
+                .reshape(-1).to(device))
+    kw = dict(tile_size=16, capacity=min(CAP, n), pair_budget=BUDGET,
+              pair_kernel="seg", max_tiles_per_gaussian=16)
+    gen = torch.Generator(device=device).manual_seed(4)
+    names = ("means", "quats", "scales", "opacities")
+    worst = {"image": 0.0, "loss": 0.0, "grads": 0.0, "absgrad": 0.0}
+
+    def render(params, vm, K, sink, **band):
+        return rasterize(*params, vm, K, w, h, absgrad_sink=sink, **kw,
+                         **band)
+
+    cams = []
+    for c in range(d["viewmats"].shape[0]):
+        vm = torch.from_numpy(d["viewmats"][c]).to(device)
+        K = torch.from_numpy(d["Ks"][c]).to(device)
+        gt = torch.rand((h, w), generator=gen, device=device)
+        em = gt >= 0.5
+        scores = torch.rand(h * w, generator=gen, device=device)
+        params = [x.clone().requires_grad_() for x in base]
+        sink = torch.zeros((n, 2), device=device, requires_grad=True)
+        out = render(params, vm, K, sink)
+        pred = torch.clamp(out.image, 0.0, 1.0)
+        full_losses = torch.stack([
+            losses.projection_loss_whole(pred, gt),
+            losses.projection_loss_bg_edge_ratio(pred, gt, em, 1.0, scores),
+            losses.projection_loss_weighted(pred, gt,
+                                            losses.compute_weight_mask(em))])
+        full_grads = torch.autograd.grad(full_losses.sum(), params + [sink])
+        cams.append((vm, K, gt, em, scores, out.image.detach(),
+                     full_losses.detach(), full_grads))
+    torch.cuda.synchronize()
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
+    for c, (vm, K, gt, em, scores, full_img, full_losses,
+            full_grads) in enumerate(cams):
+        params = [x.clone().requires_grad_() for x in base]
+        imgs, band_losses = [], torch.zeros(3, device=device)
+        grads = [torch.zeros_like(g) for g in full_grads]
+        for b in range(BANDS):
+            y0 = b * band_h
+            sink = torch.zeros((n, 2), device=device, requires_grad=True)
+            out = render(params, vm, K, sink, band_row0=b * rows_per,
+                         band_tile_rows=rows_per)
+            pred = torch.clamp(out.image, 0.0, 1.0)
+            gt_b, em_b, valid_b = bands.band_inputs(gt, em, y0, band_h,
+                                                    pad_h, h, w)
+            part = torch.stack([bands.band_partial_loss(
+                pred, gt_b, em_b, valid_b, em, s, 1.0, scores,
+                loss_type="l1", height=h, width=w, y0=y0, band_h=band_h,
+                pad_h=pad_h) for s in range(3)])
+            for acc, g in zip(grads, torch.autograd.grad(
+                    part.sum(), params + [sink])):
+                acc += g
+            band_losses += part.detach()
+            imgs.append(out.image.detach())
+        torch.cuda.synchronize()
+        e_img = (torch.cat(imgs)[:h] - full_img).abs().max().item()
+        check_image(e_img, f"camera {c} bands")
+        e_loss = ((band_losses - full_losses).abs()
+                  / full_losses.abs()).max().item()
+        if not e_loss <= 1e-5:
+            raise AssertionError(f"camera {c}: band losses {band_losses} "
+                                 f"vs full {full_losses}")
+        e_grads = max(rel_err(a, b, f"camera {c} bands: {nm}")
+                      for nm, a, b in zip(names, grads, full_grads))
+        e_abs = rel_err(torch.linalg.vector_norm(grads[-1], dim=-1),
+                        torch.linalg.vector_norm(full_grads[-1], dim=-1),
+                        f"camera {c} bands: absgrad")
+        for k, v in zip(worst, (e_img, e_loss, e_grads, e_abs)):
+            worst[k] = max(worst[k], v)
+        log(f"camera {c}: band image err {e_img:.3g}, losses rel "
+            f"{e_loss:.3g} (full {[f'{x:.6f}' for x in full_losses.tolist()]}"
+            f"), grads rel {e_grads:.3g}, absgrad rel {e_abs:.3g}")
+    launches = {k: v for mod in kernel_modules()
+                for k, v in mod.launch_counts.items()}
+    bands_run = len(cams) * BANDS
+    expected = no_launches(segpair_fwd=bands_run, segpair_bwd=bands_run)
+    if launches != expected:
+        raise AssertionError(f"launches {launches} of the band renders, "
+                             f"expected {expected}")
+    log(f"band mode ok: worst {worst}, launches {launches}")
+    return launches
+
+
+def phase_shard_sum_kernel(device):
+    """The shard-sum kernel on one [SHARD_ROWS, 128] shard against its
+    plain version; its time beside the plain version's, torch.sum's and
+    the bytes bound."""
+    from edgegaussians_tpu_torch.ops import shard_sum
+    log(f"== phase 7 (shard_sum): the shard-sum kernel vs its plain "
+        f"version on a [{SHARD_ROWS}, 128] shard")
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.rand((SHARD_ROWS, 128), generator=gen, device=device)
+    with torch.no_grad():
+        got = shard_sum.shard_sum2x(x)
+        plain = shard_sum.shard_sum2x_ref(x)
+        torch.cuda.synchronize()
+        exact = (2.0 * x.double()).sum(0, keepdim=True)
+        err = (got - plain).abs().max().item()
+        rel = ((got.double() - exact).abs() / exact).max().item()
+        if not rel <= 1e-5:
+            raise AssertionError(f"shard_sum: {rel:.3g} from the float64 sum")
+        ms = (cuda_ms(lambda: shard_sum.shard_sum2x(x), 200),
+              cuda_ms(lambda: shard_sum.shard_sum2x_ref(x), 200),
+              cuda_ms(lambda: torch.sum(x, 0, keepdim=True), 200))
+    bound = bound_ms(x.numel() * 4 + 128 * 4, x.numel(), (1, 0))
+    log(f"shard_sum: max_abs_err vs plain {err:.3g} (rel to float64 "
+        f"{rel:.3g}); kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+        f"torch.sum {ms[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return err, ms, bound
+
+
+def phase_view_batch(tmp: str, scan: str):
+    """Phase 7b: view batches in one process through the CLI."""
+    epochs, batches = EPOCHS, VIEWS // VIEW_BATCH
+    log(f"== phase 7b: view batches, {epochs} epochs of ABC_DexiNed on the "
+        f"same scan; cuts: step_mode=view_batch, view_batch_size="
+        f"{VIEW_BATCH}")
+    text, launches, out_dir, _ = train_cli_run(
+        tmp, scan, epochs, "view_batch",
+        training=dict(step_mode="view_batch", view_batch_size=VIEW_BATCH))
+    rows = epoch_lines(text, epochs)
+    views = epochs * VIEWS
+    expected = no_launches(segpair_fwd=views, segpair_bwd=views)
+    if launches != expected:
+        raise AssertionError(f"launches {launches} on the view-batch path, "
+                             f"expected {expected}")
+    with np.load(os.path.join(out_dir, f"epoch{epochs - 1}.npz")) as ck:
+        steps = int(ck["f:.step"])
+    if steps != epochs * batches:
+        raise AssertionError(f"{steps} batch steps, expected {batches} per "
+                             "epoch")
+    pxs = [r[2] for r in rows[1:]]
+    log(f"view-batch path ok: losses={[r[0] for r in rows]} steps={steps} "
+        f"launches={launches}, steady epochs {pxs} Mpx/s")
+    return launches, pxs
+
+
+def run_ranks(nproc: int, tag: str, out: str, cli_argv, dist_backend=None):
+    """``scripts/torch_multiprocess_worker.py`` on ``nproc`` ranks of
+    this card through ``torch.distributed.run``: the probe, then the CLI
+    with ``cli_argv`` in the same group. Returns (rank 0's output, every
+    rank's results). Every process it starts is stopped on return."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), WORKER, "--tasks", "cli",
+           "--device", "cuda", "--out", out]
+    if dist_backend:
+        cmd += ["--dist_backend", dist_backend]
+    proc = subprocess.Popen(cmd + ["--"] + cli_argv, cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=RANKS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: torch.distributed.run exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    results = []
+    for r in range(nproc):
+        with np.load(os.path.join(out, f"rank{r}.npz")) as d:
+            results.append({k: d[k] for k in d.files})
+    return text, results
+
+
+def check_ranks_agree(results, tag: str) -> None:
+    """Every rank's final state equal to rank 0's, bit for bit."""
+    keys = [k for k in results[0] if k.startswith("cli:")]
+    for r, res in enumerate(results[1:], 1):
+        for k in keys:
+            if not np.array_equal(res[k], results[0][k]):
+                raise AssertionError(f"{tag}: rank {r}'s {k[4:]} differs "
+                                     "from rank 0's")
+
+
+def check_losses_match(rows, ref_rows, tag: str) -> float:
+    """Epoch losses against the single-process run's: within
+    MULTI_LOSS_RTOL relative plus the log's last printed digit."""
+    worst = 0.0
+    for e, (a, b) in enumerate(zip(rows, ref_rows)):
+        diff = abs(a[0] - b[0])
+        if diff > MULTI_LOSS_RTOL * abs(b[0]) + 1e-5:
+            raise AssertionError(f"{tag}: epoch {e} loss {a[0]} vs "
+                                 f"{b[0]} in one process")
+        worst = max(worst, diff / abs(b[0]))
+    return worst
+
+
+def phase_multi_rank(tmp: str, scan: str):
+    """Phase 7c: the sharded trainers on two ranks of the card (and the
+    Gaussian-axis one on one NCCL rank), each against a single-process
+    run of the same config. Returns the shard-sum probe's launches, its
+    error and each run's steady-epoch Mpx/s."""
+    cuts = ", ".join(f"{k}={v}" for k, v in
+                     {**MULTI_ORIENT, **MULTI_MODEL}.items())
+    batches = dict(step_mode="view_batch", view_batch_size=MULTI_BATCH)
+    # name: (training cuts, ranks, 'views' axis, CLI flags, backend)
+    runs = {
+        "tiles": (dict(), 2, 1, ["--mesh_tiles", "2"], "gloo"),
+        "gauss": (dict(), 2, 1, ["--mesh_gauss", "2"], "gloo"),
+        "views": (batches, 2, 2, ["--mesh_views", "2"], "gloo"),
+        "views_tiles": (batches, 4, 2, ["--mesh_views", "2", "--mesh_tiles",
+                                        "2"], "gloo"),
+        "gauss_nccl": (dict(), 1, 1, ["--mesh_gauss", "1"], None),
+    }
+    single = {}
+    out = {}
+    probe = None
+    for name, (training, nproc, n_views, flags, backend) in runs.items():
+        ref_tag = "multi_ref_views" if training else "multi_ref"
+        if ref_tag not in single:
+            log(f"== phase 7c ({ref_tag}): {EPOCHS} epochs in one process; "
+                f"cuts: {cuts}" + (f", {training}" if training else ""))
+            text, _, _, _ = train_cli_run(
+                tmp, scan, EPOCHS, ref_tag, orient=MULTI_ORIENT,
+                training=training, **MULTI_MODEL)
+            single[ref_tag] = epoch_lines(text, EPOCHS)
+        log(f"== phase 7c ({name}): {nproc} rank(s) on the card "
+            f"({backend or 'nccl'}), {' '.join(flags)}, the same config")
+        cfg, cfg_path = write_config(tmp, EPOCHS, f"multi_{name}",
+                                     orient=MULTI_ORIENT, training=training,
+                                     **MULTI_MODEL)
+        t0 = time.time()
+        text, results = run_ranks(
+            nproc, name, os.path.join(tmp, f"ranks_{name}"),
+            ["--config_file", cfg_path, "--scene_name", scan, "--backend",
+             "cuda", "--force_rerun"] + flags, backend)
+        wall = time.time() - t0
+        rows = epoch_lines(text, EPOCHS)
+        check_ranks_agree(results, name)
+        with np.load(os.path.join(run_dir(cfg, scan),
+                                  f"epoch{EPOCHS - 1}.npz")) as ck:
+            for k in ck.files:
+                if not np.array_equal(ck[k], results[0]["cli:" + k]):
+                    raise AssertionError(f"{name}: the checkpoint's {k} "
+                                         "is not rank 0's state")
+        rel = check_losses_match(rows, single[ref_tag], name)
+        per_rank = [json.loads(str(r["launches"])) for r in results]
+        views = EPOCHS * VIEWS // n_views
+        expected = no_launches(segpair_fwd=views, segpair_bwd=views)
+        for r, got in enumerate(per_rank):
+            if got != expected:
+                raise AssertionError(f"{name}: rank {r} launches {got}, "
+                                     f"expected {expected}")
+        sums = [r["probe_sum"] for r in results]
+        plain = results[0]["probe_plain"]
+        p_err = max(float(np.abs(s - plain).max()) for s in sums)
+        p_rel = max(float((np.abs(s - plain) / np.abs(plain)).max())
+                    for s in sums)
+        if not p_rel <= 1e-5 or any(int(r["probe_launches"]) != 1
+                                    for r in results):
+            raise AssertionError(f"{name}: the shard-sum probe under "
+                                 f"all-reduce is {p_rel:.3g} from plain")
+        collectives = json.loads(str(results[0]["collectives"]))
+        alive = [r[1] for r in rows]
+        pxs = [r[2] for r in rows[1:]]
+        log(f"{name} ok in {wall:.1f}s (process start included): losses="
+            f"{[r[0] for r in rows]} (one process "
+            f"{[r[0] for r in single[ref_tag]]}, worst rel {rel:.3g}) "
+            f"alive={alive} ranks bit-equal, launches per rank "
+            f"{per_rank[0]}, probe all-reduced err {p_err:.3g} "
+            f"(rel {p_rel:.3g}) in {nproc} rank(s), steady epochs {pxs} "
+            f"Mpx/s; {backend or 'nccl'} on CUDA tensors: {collectives}")
+        out[name] = (pxs, sum(int(r["probe_launches"]) for r in results),
+                     p_err)
+        if probe is None and nproc > 1:
+            probe = out[name][1:]
+    return out, probe
+
+
 def phase_full(tmp: str):
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     scan = "SYN01"
@@ -1251,6 +1593,9 @@ def main() -> int:
         ms.update(ms_p)
         bounds.update(bounds_p)
     phase_whole_path(device)
+    band_launches = phase_band_mode(device)
+    err["shard_sum"], ms["shard_sum"], bounds["shard_sum"] = \
+        phase_shard_sum_kernel(device)
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     with tempfile.TemporaryDirectory() as tmp:
         scan = "synth0"
@@ -1265,15 +1610,23 @@ def main() -> int:
         orient_launches, orient_pxs = phase_orientation_path(
             tmp, scan, args.profile_dir)
         others = phase_other_paths(tmp, scan, args.profile_dir)
+        _, batch_pxs = phase_view_batch(tmp, scan)
+        multi, (probe_launches, probe_err) = phase_multi_rank(tmp, scan)
         if args.full:
             phase_full(tmp)
     log(f"steady epochs (epoch >= 1): seg path {seg_pxs} Mpx/s; fallback "
         f"run, dense two-level path {dense_pxs} Mpx/s; orientation path "
         f"{orient_pxs} Mpx/s; "
         + "; ".join(f"{path} path {pxs} Mpx/s"
-                    for path, (_, pxs) in others.items()))
+                    for path, (_, pxs) in others.items())
+        + f"; view batches of {VIEW_BATCH} {batch_pxs} Mpx/s; "
+        + "; ".join(f"{name} ranks {pxs} Mpx/s"
+                    for name, (pxs, _, _) in multi.items()))
+    log(f"band renders (phase 7a) launched {band_launches['segpair_fwd']} "
+        f"of each seg kernel; the shard-sum probe under all-reduce err "
+        f"{probe_err:.3g}")
     from edgegaussians_tpu_torch.ops import (
-        knn, pair, raster_v1, raster_v2, segpair)
+        knn, pair, raster_v1, raster_v2, segpair, shard_sum)
     kernels = []
     for name, source, replaces, launches in (
             ("segpair_fwd", segpair.KERNEL_SOURCE,
@@ -1298,7 +1651,10 @@ def main() -> int:
              others["single_v1"][0]),
             ("raster_v1_bwd", raster_v1.KERNEL_SOURCE,
              "edgegaussians_tpu/ops/pallas_raster.py:97",
-             others["single_v1"][0])):
+             others["single_v1"][0]),
+            ("shard_sum", shard_sum.KERNEL_SOURCE,
+             "tests/test_vma.py:205, scripts/vma_pallas_repro.py:52",
+             {"shard_sum": probe_launches})):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -98,7 +98,9 @@ def render_view(model: GaussianModel, viewmat: torch.Tensor,
     """Render one camera (edge_gs.py:197-286), applying the exp/sigmoid
     reparameterizations at the rasterizer boundary (edge_gs.py:253-254).
     ``render_kwargs`` are :func:`~edgegaussians_tpu_torch.ops.rasterize.
-    rasterize`'s tile settings."""
+    rasterize`'s tile settings; ``band_row0`` with ``band_tile_rows``
+    renders one band of tile rows (gaussians.py:103-121 of the JAX
+    package; band mode in ``ops/rasterize.py``)."""
     return rasterize(
         model.means, model.quats, linear_scales(model),
         linear_opacities(model), viewmat, K, width, height,

@@ -28,11 +28,21 @@ The dispatch of rasterize.py:156-222, four paths:
 default) or ``"pallas_v1"``. It changes only the single-level frame, as in
 the JAX package, whose two-level and pair paths never reach the v1 kernel
 (composite.py:336,384). ``"jax"`` and ``"reference"`` name the JAX
-package's XLA oracle, which has no counterpart here, and are refused.
-Band mode (tile-row sharded rendering, ``parallel/``) is not ported and
-raises; so does an unknown ``pair_kernel`` value (the JAX package falls
-through to the v4 kernel there). Colours are implicitly all-ones, so the
-rendered intensity is the accumulated alpha.
+package's XLA oracle, which has no counterpart here, and are refused; so
+is an unknown ``pair_kernel`` value (the JAX package falls through to the
+v4 kernel there). Colours are implicitly all-ones, so the rendered
+intensity is the accumulated alpha.
+
+Band mode (``band_row0`` and ``band_tile_rows``, rasterize.py:79-88,
+136-142): render only the ``band_tile_rows`` tile rows from tile row
+``band_row0`` on, the unit of every sharded render (``parallel/``). The
+screen-space centres shift up by ``band_row0 * tile_size`` pixels, in the
+binning copy and, through autograd, in the packed rows, so gradients reach
+the unshifted centres. Gaussians outside the band bin to no tile, so each
+band tile holds the pairs of the full render's tile and the band image is
+those rows of the full image, on all four paths. ``image`` is then
+``[band_tile_rows * tile_size, W]`` and the per-tile diagnostics cover
+the band only.
 """
 
 from __future__ import annotations
@@ -127,11 +137,14 @@ def rasterize_packed(
     band_row0=None,
     band_tile_rows: Optional[int] = None,
 ) -> RenderResult:
-    """Bin + composite pre-projected, pre-packed Gaussians."""
-    if band_tile_rows is not None or band_row0 is not None:
-        raise NotImplementedError(
-            "band mode (tile-row sharded rendering) is not ported yet: "
-            "ROADMAP Queue 1 #12 (parallel/)")
+    """Bin + composite pre-projected, pre-packed Gaussians.
+
+    The entry point of Gaussian-axis sharding (``parallel/train_tp.py``):
+    gradients flow through ``packed`` only; ``proj`` feeds the binning.
+    ``band_row0`` (a Python int or a 0-d tensor) and ``band_tile_rows``
+    select band mode (module docstring)."""
+    if (band_row0 is None) != (band_tile_rows is None):
+        raise ValueError("band mode takes both band_row0 and band_tile_rows")
     if pair_kernel not in (False, 0, None, True, "block", "seg"):
         raise ValueError(f"unknown pair_kernel {pair_kernel!r} "
                          "(expected 'seg', True/'block' or False)")
@@ -145,6 +158,14 @@ def rasterize_packed(
 
     n = packed.shape[0]
     dev = packed.device
+    if band_tile_rows is not None:
+        height = band_tile_rows * tile_size
+        shift = torch.as_tensor(band_row0 * tile_size, device=dev).to(
+            torch.float32)
+        off = torch.stack([torch.zeros_like(shift), shift])
+        proj = proj._replace(means2d=proj.means2d - off)
+        # columns 3:5 of a packed row are the screen-space centre
+        packed = packed - torch.nn.functional.pad(off, (3, 3))
     origins = tile_origins(width, height, tile_size, device=dev)
     basis = pixel_basis(tile_size, device=dev)
     if absgrad_sink is None:

@@ -1,0 +1,66 @@
+"""The shard-sum probe: ``shard_sum2x(x [rows,128]) -> [1,128] = 2 * sum_i
+x[i, :]``, the counterpart of the Pallas probe kernel of
+``tests/test_vma.py:205`` and ``scripts/vma_pallas_repro.py:52``.
+
+In the JAX package the probe sits inside a ``shard_map`` over a 'tiles'
+axis: every device reduces its shard in a ``fori_loop``, then one ``psum``
+gives the whole array's row. It pinned the double-reduction bug class of
+sharded steps (a gradient psum'd twice came out 4x on a 4-way mesh,
+train_dp.py:134-139). Here each rank runs :func:`shard_sum2x` on its shard
+and one ``all_reduce`` (SUM) follows
+(``parallel/distributed.sharded_sum2x``); the result must be the whole
+array's, not ``world`` times it.
+
+Two implementations, chosen by the device of the input:
+
+- ``csrc/shard_sum.cu`` for CUDA tensors: :func:`shard_sum2x` launches it
+  or raises; each launch adds one to ``launch_counts``;
+- :func:`shard_sum2x_ref`, plain PyTorch, for CPU tensors, and the
+  yardstick the kernel is held to on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from edgegaussians_tpu_torch.ops.segpair import check_tensor
+
+KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/shard_sum.cu"
+COLS = 128
+
+# Launches of the kernel since the last reset_launch_counts(); only the
+# kernel wrapper below adds to it.
+launch_counts = {"shard_sum": 0}
+
+
+def reset_launch_counts() -> None:
+    launch_counts["shard_sum"] = 0
+
+
+def shard_sum2x(x: torch.Tensor) -> torch.Tensor:
+    """``x [rows, 128]`` f32 -> ``[1, 128]`` f32, twice the column sums.
+    CUDA tensors launch the kernel; CPU tensors take
+    :func:`shard_sum2x_ref`."""
+    if x.device.type == "cpu":
+        return shard_sum2x_ref(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no shard_sum kernel for device {x.device}")
+    if x.dim() != 2 or x.shape[1] != COLS:
+        raise ValueError(f"x: expected [rows, {COLS}], got {tuple(x.shape)}")
+    check_tensor("x", x, torch.float32, x.shape, x.device)
+    out = torch.empty((1, COLS), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    from edgegaussians_tpu_torch.ops import _build
+    _build.launch("shard_sum", "shard_sum2x",
+                  [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p],
+                  (x.data_ptr(), x.shape[0], out.data_ptr(), stream))
+    launch_counts["shard_sum"] += 1
+    return out
+
+
+def shard_sum2x_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`shard_sum2x`."""
+    return (2.0 * x).sum(0, keepdim=True)

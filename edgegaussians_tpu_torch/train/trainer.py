@@ -11,8 +11,19 @@ at its scheduled epochs, the pair-overflow watermark with its warn, error
 and fallback actions, checkpoints in the JAX ``.npz`` key layout, and the
 JAX trainer's epoch log line.
 
+Multi-rank training (JAX trainer.py:576-617,641-664,716-738):
+``train(mesh=...)`` splits every render over the ranks of a 'tiles' axis
+(``parallel/train_sharded.py``) or a 'gauss' axis (``parallel/
+train_tp.py``) with the per-view schedule unchanged, and ``step_mode:
+"view_batch"`` runs the view-batch step of ``parallel/train_dp.py``, on a
+('views', ...) mesh or, without one, in this process. The ranks run the
+replicated work (Adam, orientation, density control) each on its own
+copy; rank 0's copy is broadcast after every orientation fire and density
+event, every epoch ends with a bit-for-bit check that the ranks agree,
+and only rank 0 logs and writes checkpoints.
+
 Not ported yet, and refused up front by :func:`train`: staged capacity
-(ROADMAP Queue 1 #8) and the view-batch step mode (Queue 1 #12).
+(ROADMAP Queue 1 #8).
 
 Random draws come from one CPU ``torch.Generator`` seeded with the
 training seed: the per-epoch view permutation (injectable through
@@ -28,7 +39,7 @@ import dataclasses
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +51,7 @@ from edgegaussians_tpu_torch.models import density, losses
 from edgegaussians_tpu_torch.models.gaussians import (
     GROUPS, GaussianModel, init_state, render_view)
 from edgegaussians_tpu_torch.ops.tiles import tile_grid
+from edgegaussians_tpu_torch.parallel import distributed
 from edgegaussians_tpu_torch.train import optim
 from edgegaussians_tpu_torch.train.optim import OptState, annealed
 
@@ -53,6 +65,9 @@ class TrainState:
     step: int                    # renders so far (the reference's model.step)
     generator: torch.Generator   # view permutations, bg_edge_ratio scores
     seed: int                    # training seed the generator started from
+    # called after each replicated update that may differ in its last bits
+    # between ranks (parallel/distributed.py: replicate); None in one process
+    sync: Optional[Callable[["TrainState"], None]] = None
 
 
 class EpochStats(NamedTuple):
@@ -206,6 +221,8 @@ def view_step(state: TrainState, view_idx: int, images, edge_masks,
     run_sum = run_sum + loss
     if state.step % 5 == 0 and (apply_dir or apply_ratio):
         orientation_step(state, run_sum, lrs, ol_cfg, apply_dir, apply_ratio)
+        if state.sync is not None:
+            state.sync(state)
     return stats, run_sum
 
 
@@ -290,10 +307,6 @@ def check_schedule_is_ported(cfg: FrameworkConfig) -> None:
     if cfg.model.staged_capacity:
         raise NotImplementedError(
             "staged_capacity is not ported yet (ROADMAP Queue 1 #8)")
-    if cfg.training.step_mode == "view_batch":
-        raise NotImplementedError(
-            "step_mode='view_batch' (data-parallel view batches) is not "
-            "ported yet (ROADMAP Queue 1 #12)")
 
 
 def init_train_state(seed_points: np.ndarray, cfg: FrameworkConfig,
@@ -367,6 +380,73 @@ def _reports_pairs(mcfg, capacity: int) -> bool:
             or 0 < mcfg.tile_dense_capacity < cap)
 
 
+def _step_factory(cfg: FrameworkConfig, scene, mesh,
+                       mesh_strategy: str):
+    """``build(cfg)`` of the run's step: the proj-grad of run_epoch (one
+    device, or split over ``mesh``'s 'tiles' or 'gauss' axis), or, with
+    ``step_mode: "view_batch"``, the view-batch step; and the view-batch
+    mesh (None in per-view mode)."""
+    w, h = scene.width, scene.height
+    if cfg.training.step_mode == "view_batch":
+        from edgegaussians_tpu_torch.parallel import mesh as mesh_mod
+        from edgegaussians_tpu_torch.parallel import train_dp
+        if mesh is not None and "views" not in mesh.shape:
+            raise ValueError(
+                "step_mode='view_batch' needs a mesh with a 'views' axis; "
+                f"got {mesh} — pass --mesh_views (with --mesh_tiles or "
+                "--mesh_gauss for the inner axis)")
+        dp_mesh = mesh if mesh is not None else mesh_mod.make_mesh(1, 1)
+        return (lambda c: train_dp.make_dp_train_step(c, w, h, dp_mesh),
+                dp_mesh)
+    if mesh is None:
+        return (lambda c: make_proj_grad_fn(c, w, h)), None
+    if mesh_strategy == "tiles":
+        from edgegaussians_tpu_torch.parallel.train_sharded import \
+            make_sharded_proj_grad_fn as make_fn
+    elif mesh_strategy == "gauss":
+        from edgegaussians_tpu_torch.parallel.train_tp import \
+            make_tp_proj_grad_fn as make_fn
+    else:
+        raise ValueError(f"unknown mesh_strategy {mesh_strategy!r}")
+    if mesh_strategy not in mesh.shape:
+        raise ValueError(f"mesh_strategy {mesh_strategy!r} needs a mesh "
+                         f"with that axis; got {mesh}")
+    return (lambda c: make_fn(c, w, h, mesh, mesh_strategy)), None
+
+
+def run_view_batch_epoch(state: TrainState, epoch: int, dp_step, dp_rng,
+                         batch_size: int, images, edge_masks, viewmats, Ks,
+                         bg_scores: Optional[Dict[int, torch.Tensor]] = None
+                         ) -> EpochStats:
+    """One epoch of view batches (trainer.py:641-664): ``dp_rng``'s
+    permutation of the views (NumPy, so the same batches as the JAX
+    trainer's ``default_rng(seed + 977)``) cut into ``batch_size`` views
+    per batch step, each batch sorted. ``bg_scores[s]``, when given, is
+    batch step s's [batch_size, H*W] bg_edge_ratio draws."""
+    nv = images.shape[0]
+    nb = max(nv // batch_size, 1)
+    perm = dp_rng.permutation(nv)[:nb * batch_size]
+    loss_sum = torch.zeros((), device=images.device)
+    peaks = torch.zeros(4, dtype=torch.int64, device=images.device)
+    for i in range(nb):
+        sel = torch.from_numpy(np.sort(perm[i * batch_size:
+                                            (i + 1) * batch_size])).to(
+                                                images.device)
+        loss, st = dp_step(state, epoch, images[sel], edge_masks[sel],
+                           viewmats[sel], Ks[sel],
+                           bg_scores=bg_scores.get(state.step)
+                           if bg_scores else None)
+        loss_sum = loss_sum + loss
+        peaks = torch.maximum(peaks, torch.stack(list(st)).to(torch.int64))
+    avg, alive = (torch.stack([loss_sum / nb,
+                               state.model.num_alive().to(loss_sum.dtype)])
+                  .tolist())
+    max_tile, max_ovf, max_trunc, max_pairs = peaks.tolist()
+    return EpochStats(avg_loss=avg, num_alive=int(alive),
+                      max_tile_count=max_tile, max_overflow_tiles=max_ovf,
+                      max_truncated=max_trunc, max_pairs=max_pairs)
+
+
 def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
           backend: str = "auto", log_fn=print,
           checkpoint_dir: Optional[str] = None,
@@ -374,17 +454,29 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
           profile_dir: Optional[str] = None, profile_epochs: int = 1,
           view_orders: Optional[List[Sequence[int]]] = None,
           density_noise: Optional[Dict[int, torch.Tensor]] = None,
-          bg_scores: Optional[Dict[int, torch.Tensor]] = None
-          ) -> TrainState:
+          bg_scores: Optional[Dict[int, torch.Tensor]] = None,
+          mesh=None, mesh_strategy: str = "tiles") -> TrainState:
     """Full training run on one scene (train_gaussians.py:144-222).
 
     ``scene`` is a SceneViews. ``view_orders[e]``, when given, replaces
     epoch e's random view permutation, ``density_noise[e]`` epoch e's
     duplication noise and ``bg_scores[r]`` render r's bg_edge_ratio
-    scores. ``profile_dir`` writes a torch.profiler Chrome
+    scores (in view-batch mode: batch step r's, one row per view of the
+    batch). ``profile_dir`` writes a torch.profiler Chrome
     trace of epochs [2, 2 + profile_epochs).
+
+    ``mesh`` (``parallel/mesh.py``) splits every render over its
+    ``mesh_strategy`` axis: 'tiles' bands of tile rows, or 'gauss' shards
+    of the Gaussians (each rank compositing a band too). With
+    ``step_mode: "view_batch"`` the mesh needs a 'views' axis, and no mesh
+    means one rank. Every rank calls this with the same arguments; only
+    rank 0 logs and writes checkpoints.
     """
     check_schedule_is_ported(cfg)
+    lead = distributed.rank() == 0
+    if not lead:
+        def log_fn(*_):
+            return None
     device = backend_device(
         resolve_backend(backend, cfg.model.rasterizer_backend))
     images = torch.from_numpy(np.asarray(scene.images, np.float32)).to(device)
@@ -395,24 +487,42 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
 
     state = initial_state or init_train_state(seed_points, cfg,
                                               device=device)
-    proj_grad = make_proj_grad_fn(cfg, scene.width, scene.height)
+    if distributed.is_distributed():
+        state.sync = distributed.replicate
+        distributed.replicate(state)
+    build_step, dp_mesh = _step_factory(cfg, scene, mesh,
+                                             mesh_strategy)
+    step_fn = build_step(cfg)
+    if dp_mesh is not None:
+        batch_size = min(cfg.training.view_batch_size or scene.num_views,
+                         scene.num_views)
+        if batch_size % dp_mesh.size("views"):
+            raise ValueError(
+                f"view_batch_size {batch_size} must divide by the 'views' "
+                f"mesh axis size {dp_mesh.size('views')}")
+        dp_rng = np.random.default_rng(cfg.training.seed + 977)
     pair_mode = bool(cfg.model.tile_pair_budget)
     reports_pairs = _reports_pairs(cfg.model, state.model.capacity)
     px_per_epoch = scene.num_views * scene.width * scene.height
     num_tiles = tile_grid(scene.width, scene.height, cfg.model.tile_size)[2]
     ovf_budget = cfg.model.tile_overflow_tiles or max(num_tiles // 4, 8)
-    prof_epochs = range(2, 2 + max(profile_epochs, 1)) if profile_dir \
-        else range(0)
+    prof_epochs = range(2, 2 + max(profile_epochs, 1)) \
+        if profile_dir and lead else range(0)
     prof = None
     t0 = time.time()
     t_prev = t0
     for epoch in range(cfg.training.num_epochs):
-        if epoch == prof_epochs.start and profile_dir:
+        if epoch == prof_epochs.start and prof_epochs:
             prof = _start_profiler(device)
-        stats = run_epoch(
-            state, epoch, images, edge_masks, viewmats, Ks, cfg, proj_grad,
-            view_order=view_orders[epoch] if view_orders else None,
-            bg_scores=bg_scores)
+        if dp_mesh is not None:
+            stats = run_view_batch_epoch(
+                state, epoch, step_fn, dp_rng, batch_size, images,
+                edge_masks, viewmats, Ks, bg_scores=bg_scores)
+        else:
+            stats = run_epoch(
+                state, epoch, images, edge_masks, viewmats, Ks, cfg, step_fn,
+                view_order=view_orders[epoch] if view_orders else None,
+                bg_scores=bg_scores)
         if prof is not None and epoch + 1 == prof_epochs.stop:
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)
@@ -427,9 +537,12 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
             prof = None
             log_fn(f"profiler trace and key_averages.txt written to "
                    f"{profile_dir}")
-        run_density_control(
+        fired = run_density_control(
             state, epoch, cfg, viewmats, Ks, edge_masks,
             noise=density_noise.get(epoch) if density_noise else None)
+        if fired and state.sync is not None:
+            state.sync(state)
+        distributed.check_lockstep(state, f"after epoch {epoch}")
         if epoch % max(cfg.training.log_interval, 1) == 0:
             now = time.time()
             dt = max(now - t_prev, 1e-9)
@@ -450,12 +563,11 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
             # the run (trainer.py:716-738)
             dense_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, tile_pair_budget=0))
-            proj_grad = make_proj_grad_fn(dense_cfg, scene.width,
-                                          scene.height)
+            step_fn = build_step(dense_cfg)
             pair_mode = False
             reports_pairs = _reports_pairs(dense_cfg.model,
                                            state.model.capacity)
-        if (checkpoint_dir and cfg.training.checkpoint_interval
+        if (lead and checkpoint_dir and cfg.training.checkpoint_interval
                 and (epoch + 1) % cfg.training.checkpoint_interval == 0):
             save_checkpoint(state, checkpoint_dir, epoch)
     return state

@@ -1,6 +1,6 @@
 """The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu,
-csrc/raster_v2.cu, csrc/knn.cu, csrc/pair.cu and csrc/raster_v1.cu) held to
-their plain PyTorch versions, on a GPU.
+csrc/raster_v2.cu, csrc/knn.cu, csrc/pair.cu, csrc/raster_v1.cu and
+csrc/shard_sum.cu) held to their plain PyTorch versions, on a GPU.
 
 Every test here needs the card and skips where torch sees none. The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -24,6 +24,10 @@ moments rtol 5e-3, both with atol 1e-6 of the group's max-abs
 The v4 pair and v1 kernels: image atol 1e-5, dfeats 1e-4 of the plain
 version's max-abs (their suffix ``(total - c_inc) / (1 - alpha)`` carries
 the running sums' last-bit differences, up to 1000x at alpha near 0.999).
+The shard-sum probe: rtol 1e-5 of a float64 sum (uniform draws, so no
+cancellation; the kernel's per-thread sums and tree add in another order
+than the plain version), the same bits on a second launch. Band mode on
+the seg path: GPU against CPU with the whole-rasterizer tolerances.
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ import torch
 
 from edgegaussians_tpu_torch.ops import knn as knn_mod
 from edgegaussians_tpu_torch.ops import (
-    pair, raster_v1, raster_v2, segpair, tiles)
+    pair, raster_v1, raster_v2, segpair, shard_sum, tiles)
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.rasterize import rasterize
 
@@ -583,6 +587,71 @@ def test_new_paths_on_gpu_match_cpu_path(device, path):
     after = {k: v for m in mods for k, v in m.launch_counts.items()}
     assert {k: after[k] - before[k] for k in after} == dict(
         {k: 0 for k in after}, **launches)
+    names = ("image", "means", "quats", "scales", "opacities", "absgrad")
+    for nm, a, b in zip(names, on_gpu, grads(torch.device("cpu"))):
+        assert torch.isfinite(a).all(), nm
+        if nm == "image":
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-3, atol=3e-4, msg=nm)
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 1000, 16384])
+def test_shard_sum_kernel_matches_plain_version(device, rows):
+    """Rows 1, 127 and 1000 leave the 32-warp x 4-row stride ragged."""
+    x = torch.from_numpy(np.random.default_rng(rows).random(
+        (rows, 128)).astype(np.float32)).to(device)
+    before = shard_sum.launch_counts["shard_sum"]
+    got = shard_sum.shard_sum2x(x)
+    again = shard_sum.shard_sum2x(x)
+    torch.cuda.synchronize()
+    assert shard_sum.launch_counts["shard_sum"] == before + 2
+    assert got.shape == (1, 128)
+    assert torch.equal(got, again), "the sum changed between launches"
+    exact = (2.0 * x.double()).sum(0, keepdim=True)
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=0)
+    torch.testing.assert_close(shard_sum.shard_sum2x_ref(x).double(), exact,
+                               rtol=1e-5, atol=0)
+
+
+def test_shard_sum_wrapper_checks_inputs(device):
+    x = torch.ones((8, 128), device=device)
+    with pytest.raises(TypeError):
+        shard_sum.shard_sum2x(x.double())
+    with pytest.raises(ValueError):
+        shard_sum.shard_sum2x(torch.ones((8, 64), device=device))
+    with pytest.raises(ValueError):
+        shard_sum.shard_sum2x(torch.ones((128, 8), device=device).t())
+    assert torch.equal(shard_sum.shard_sum2x(torch.ones((0, 128),
+                                                        device=device)),
+                       torch.zeros((1, 128), device=device))
+
+
+@pytest.mark.parametrize("band", [0, 1])
+def test_band_render_on_gpu_matches_cpu_path(device, band):
+    """A band of 2 tile rows of the 3-row image (band 1 pads one row) on
+    the seg path, GPU against CPU."""
+    arrays = _scene(**SCENES["cluster"][0])
+
+    def grads(dev):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        params = [x.requires_grad_() for x in t[:4]]
+        sink = torch.zeros((t[0].shape[0], 2), device=dev,
+                           requires_grad=True)
+        out = rasterize(*params, t[4], t[5], W, H, capacity=512,
+                        pair_budget=2048, pair_kernel="seg",
+                        absgrad_sink=sink, band_row0=2 * band,
+                        band_tile_rows=2)
+        img = torch.clamp(out.image, 0, 1)
+        w = (torch.arange(img.numel(), device=dev, dtype=torch.float32)
+             .reshape(img.shape) % 7) / 7.0 + 0.3
+        g = torch.autograd.grad((img * w).sum(), params + [sink])
+        return [out.image.detach().cpu()] + [x.cpu() for x in g]
+
+    before = segpair.launch_counts["segpair_fwd"]
+    on_gpu = grads(device)
+    assert segpair.launch_counts["segpair_fwd"] == before + 1
+    assert on_gpu[0].shape == (32, W)
     names = ("image", "means", "quats", "scales", "opacities", "absgrad")
     for nm, a, b in zip(names, on_gpu, grads(torch.device("cpu"))):
         assert torch.isfinite(a).all(), nm

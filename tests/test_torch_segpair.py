@@ -214,18 +214,17 @@ def test_build_pair_features_vjp_matches_autograd():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    # band mode is refused on every path: the pair-prefix two-level frame,
+    # band mode takes both band_row0 and band_tile_rows, on every path:
+    # the pair-prefix two-level frame,
     (dict(pair_kernel=False, pair_budget=1024, dense_capacity=4,
-          band_tile_rows=1), NotImplementedError),
-    (dict(pair_kernel="seg", pair_budget=0, band_row0=0),
-     NotImplementedError),
+          band_tile_rows=1), ValueError),
+    (dict(pair_kernel="seg", pair_budget=0, band_row0=0), ValueError),
     # the v4 pair path,
-    (dict(pair_kernel=True, pair_budget=1024, band_row0=0),
-     NotImplementedError),
+    (dict(pair_kernel=True, pair_budget=1024, band_row0=0), ValueError),
     (dict(pair_kernel="segg", pair_budget=1024), ValueError),
     # the seg path
     (dict(pair_kernel="seg", pair_budget=1024, band_tile_rows=1),
-     NotImplementedError),
+     ValueError),
     # the JAX package's XLA oracle has no counterpart
     (dict(pair_budget=0, backend="jax"), ValueError),
     (dict(pair_budget=0, backend="reference"), ValueError),

@@ -270,10 +270,35 @@ def test_train_cli_end_to_end_and_checkpoints(cfg_path, tmp_path):
 
 
 def test_train_cli_refuses_mesh_flags(cfg_path):
+    """A mesh of several ranks outside torchrun exits with the command
+    that launches it; --mesh_gauss does not combine with --mesh_tiles."""
     path, _ = cfg_path()
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        train_cli.main(["--config_file", path, "--scene_name", SCAN,
-                        "--mesh_tiles", "2"])
+    argv = ["--config_file", path, "--scene_name", SCAN]
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2 "):
+        train_cli.main(argv + ["--mesh_tiles", "2"])
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 4 "):
+        train_cli.main(argv + ["--mesh_views", "2", "--mesh_gauss", "2"])
+    with pytest.raises(SystemExit, match="cannot combine"):
+        train_cli.main(argv + ["--mesh_tiles", "2", "--mesh_gauss", "2"])
+
+
+@pytest.mark.parametrize("flags,steps", [
+    (["--mesh_tiles", "1"], 2 * VIEWS),
+    (["--mesh_gauss", "1"], 2 * VIEWS),
+    (["--mesh_views", "1"], 2),
+])
+def test_train_cli_runs_one_rank_meshes(cfg_path, flags, steps):
+    """The mesh flags at one rank train in this process: a band of the
+    whole image, a shard of all the Gaussians, or view batches (2 epochs
+    of one batch of all 3 views); the single-device run's outputs."""
+    path, d = cfg_path()
+    assert train_cli.main(["--config_file", path, "--scene_name", SCAN,
+                           "--force_rerun"] + flags) == 0
+    out = os.path.join(d["output"]["output_dir"], "t_DexiNed", SCAN)
+    with np.load(os.path.join(out, "epoch1.npz")) as ck:
+        assert int(ck["f:.step"]) == steps
+        assert np.isfinite(ck["f:.gaussians.params.means"]).all()
+    assert os.path.exists(os.path.join(out, "gaussians_all.ply"))
 
 
 @pytest.mark.parametrize("change,match", [
@@ -281,9 +306,18 @@ def test_train_cli_refuses_mesh_flags(cfg_path):
     (dict(training={"step_mode": "view_batch"}), "view_batch"),
 ])
 def test_train_refuses_unported_schedule(cfg_path, change, match):
+    """Staged capacity is refused up front; view batches run, and are
+    refused only on a mesh without a 'views' axis."""
     _, d = cfg_path(**change.get("model", {}))
     d["training"].update(change.get("training", {}))
     cfg = config_from_dict(d)
+    if "training" in change:
+        from edgegaussians_tpu_torch.parallel import mesh as mesh_mod
+        scene, seeds = _scene_and_seeds(cfg)
+        with pytest.raises(ValueError, match=match):
+            trainer.train(scene, seeds, cfg, backend="torch",
+                          mesh=mesh_mod.axis_mesh("tiles", 1))
+        return
     with pytest.raises(NotImplementedError, match=match):
         trainer.train(None, None, cfg, backend="torch")
 
@@ -328,8 +362,8 @@ def test_train_runs_orientation_and_wayward_schedules(cfg_path, change):
 def test_shipped_recipe_is_refused_past_its_first_density_epoch():
     """Every shipped ABC recipe is accepted at its full num_epochs (the
     ratio loss after epoch 100, the direction loss after 250, their kNN
-    and the wayward cull are ported); staged capacity and the view-batch
-    step mode are still refused."""
+    and the wayward cull are ported), view batches too; staged capacity is
+    still refused."""
     import dataclasses
 
     from edgegaussians_tpu_torch.config import load_config
@@ -345,8 +379,7 @@ def test_shipped_recipe_is_refused_past_its_first_density_epoch():
             trainer.check_schedule_is_ported(staged)
         batched = dataclasses.replace(cfg, training=dataclasses.replace(
             cfg.training, step_mode="view_batch"))
-        with pytest.raises(NotImplementedError, match="view_batch"):
-            trainer.check_schedule_is_ported(batched)
+        trainer.check_schedule_is_ported(batched)
 
 
 def _count_renders(monkeypatch):
@@ -466,6 +499,30 @@ def test_pair_overflow_fallback_from_the_v4_path(cfg_path, monkeypatch):
     trainer.train(scene, seeds, cfg, backend="torch", log_fn=logs.append)
     assert sum("switching to the dense frame path" in x for x in logs) == 1
     assert calls == {"PairRender": VIEWS, "TileRenderTwoLevel": VIEWS}
+
+
+@pytest.mark.parametrize("mode", ["tiles", "gauss", "view_batch"])
+def test_pair_overflow_fallback_rebuilds_the_mesh_step(cfg_path, monkeypatch,
+                                                       mode):
+    """Under a one-rank mesh (a band of the whole image, a shard of all
+    Gaussians, or view batches) the 'fallback' action rebuilds the mesh's
+    step with ``tile_pair_budget=0`` (trainer.py:716-738): epoch 0 on the
+    seg path, epoch 1 on the dense two-level frame."""
+    from edgegaussians_tpu_torch.parallel import mesh as mesh_mod
+    _, d = cfg_path(tile_pair_budget=16, tile_pair_overflow_action="fallback",
+                    tile_dense_capacity=16)
+    if mode == "view_batch":
+        d["training"]["step_mode"] = "view_batch"
+    cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
+    calls = _count_renders(monkeypatch)
+    logs = []
+    mesh = None if mode == "view_batch" else mesh_mod.axis_mesh(mode, 1)
+    state = trainer.train(scene, seeds, cfg, backend="torch",
+                          log_fn=logs.append, mesh=mesh, mesh_strategy=mode)
+    assert sum("switching to the dense frame path" in x for x in logs) == 1
+    assert calls == {"seg": VIEWS, "two_level": VIEWS}
+    assert state.step == (2 if mode == "view_batch" else 2 * VIEWS)
 
 
 def test_density_event_after_a_fallback_matches_jax(cfg_path, tmp_path):
