@@ -78,10 +78,26 @@ Phases, in order; any failure exits non-zero:
    is also timed on one [16384, 128] shard beside its plain version and
    ``torch.sum``.
 
+8. The kernel lab (``edgegaussians_tpu_torch/lab/``) at the JAX labs'
+   size: 20000 random Gaussians at 800x800, the two-level frame at k1
+   128, k2 384, t2 625. First the lab path: its three entry points
+   (``scripts/torch_kernel_lab.py``, ``scripts/torch_cumprod_lab.py``,
+   ``scripts/torch_segpair_probe.py``) on the card, with their gates
+   (V3 against V0, the production ``raster_v2``: image within 1e-5,
+   dfeats within 1e-4 of max-abs; ``twolevel`` against ``v3`` within
+   1e-5; every probe PASS) and every lab kernel launched. Then each
+   chunked-scan kernel (four forward scan forms and the backward) against
+   its plain version on level 1 and on level 2 fed level 1's t_out, and
+   each probe kernel against its plain version and the script's oracle,
+   with times beside the bound and, where one PyTorch call computes the
+   same function, that call's (and each probe's device time from
+   torch.profiler).
+
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
 ``cli/make_synthetic.py --seed 11`` makes SYN01, then fit_edges and
-evaluate, printing chamfer and F@5/10/20 (ROADMAP Queue 1 #9).
+evaluate, printing chamfer and F@5/10/20 (the quality metric of PERF.md
+section 2; ROADMAP Queue 3).
 
 With ``--profile_dir``, phases 3 and 4 also trace epoch 2 with
 torch.profiler (``cli.train --profile_dir``; the tracing slows those
@@ -98,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -112,11 +129,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+# the lab's timing and t_out comparison, shared with its entry points
+from edgegaussians_tpu_torch.lab.harness import (EPS_T, cuda_ms, log,
+                                                 t_out_rel)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
 KERNEL_LIBS = ("segpair", "raster_v2", "knn", "pair", "raster_v1",
-               "shard_sum")
+               "shard_sum", "lab_chunked", "lab_probes")
 EPOCHS = 3
 VIEWS = 10
 FALLBACK_EPOCHS = 5
@@ -139,7 +160,6 @@ ORIENT_EPOCHS = 6
 ORIENT_CUTS = dict(start_ratio_loss_at_epoch=0, start_dir_loss_at_epoch=1)
 WAYWARD_EPOCH = 3
 FULL_VIEWS = 50
-TIMING_BLOCKS = 5
 # forward image: both sides take the same f32 steps per pixel; only the
 # order of the log-alpha sum (FMA chain vs matmul) and of the
 # transmittance products (sequential vs cumprod scan) differ
@@ -166,7 +186,6 @@ V1_FWD_OPS = (16, 3)
 V1_BWD_OPS = (29, 4)
 # per (query, live key) of the kNN: 3 subs, 3 muls, 2 adds, the dead-key add
 KNN_OPS = (9, 0)
-EPS_T = 1e-4                # transmittance below which a walk stops
 # phase 7: 4 bands of cdiv(50, 4) = 13 tile rows; view batches of 5;
 # the multi-rank runs' cuts (ratio loss fires from epoch 1, a
 # duplication of the top 5% by absgrad after epoch 1)
@@ -181,10 +200,12 @@ MULTI_LOSS_RTOL = 2e-3      # epoch losses, multi-rank vs one process
 WORKER = os.path.join(REPO, "scripts", "torch_multiprocess_worker.py")
 RANKS_TIMEOUT = 300
 SHARD_ROWS = 16384          # rows of the probe's shard per rank
-
-
-def log(msg: str = "") -> None:
-    print(msg, flush=True)
+# phase 8: the lab's entry points; the logsum form's tolerance (a sum of
+# logs in another order than the plain version's cumsum, then exp, where
+# the other forms multiply the same factors)
+LAB_SCRIPTS = ("torch_kernel_lab", "torch_cumprod_lab",
+               "torch_segpair_probe")
+LOGSUM_TOL = 5e-5
 
 
 def run(cmd) -> str:
@@ -192,23 +213,6 @@ def run(cmd) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[0]} failed: {proc.stderr}")
     return proc.stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median over TIMING_BLOCKS blocks of ``reps`` calls, in ms per call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMING_BLOCKS):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return float(np.median(times))
 
 
 def bound_ms(nbytes: float, evals: float, ops) -> tuple:
@@ -326,9 +330,9 @@ def rel_err(a, b, what: str) -> float:
     return rel
 
 
-def check_image(e_img: float, what: str) -> None:
-    if not math.isfinite(e_img) or e_img > IMG_ATOL:
-        raise AssertionError(f"{what}: image error {e_img:.3g} > {IMG_ATOL}")
+def check_image(e_img: float, what: str, atol: float = IMG_ATOL) -> None:
+    if not math.isfinite(e_img) or e_img > atol:
+        raise AssertionError(f"{what}: image error {e_img:.3g} > {atol}")
 
 
 def time_kernels(calls, n_cases: int, bounds):
@@ -456,15 +460,12 @@ def dense_work(feats, counts, basis, t_in):
     return common + 2 * plane, common + plane + T * K * 32, evals
 
 
-def check_t_out(t_k, t_r, what: str) -> float:
+def check_t_out(t_k, t_r, what: str, rtol: float = 1e-5) -> float:
     """Kernel t_out against the plain version's: relative error where the
     plain value is >= 1e-4; below it the value depends on where the walk
     stopped, so only that both are below 1e-4."""
-    live = t_r >= EPS_T
-    rel = ((t_k[live] - t_r[live]).abs() / t_r[live]).max().item() \
-        if bool(live.any()) else 0.0
-    if not math.isfinite(rel) or rel > 1e-5 or \
-            not bool((t_k[~live] < EPS_T).all()):
+    rel = t_out_rel(t_k, t_r)
+    if not rel <= rtol:
         raise AssertionError(f"{what}: t_out disagrees ({rel:.3g})")
     return rel
 
@@ -1534,6 +1535,258 @@ def phase_multi_rank(tmp: str, scan: str):
     return out, probe
 
 
+def lab_modules():
+    """The kernel lab's modules, each with its ``launch_counts``."""
+    from edgegaussians_tpu_torch.lab import chunked, probes
+    return (chunked, probes)
+
+
+def lab_script(name: str):
+    """``scripts/<name>.py``, one of the lab's entry points, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_lab_path():
+    """Phase 8, the lab path: the lab's three entry points on the card,
+    every launch count set to 0 just before and read just after; their
+    gates. Returns the lab kernels' launches."""
+    log("== phase 8: the kernel lab's entry points on the card (the JAX "
+        "labs' scene: 20000 Gaussians, 800x800, k1 128, k2 384, t2 625)")
+    scripts = {name: lab_script(name) for name in LAB_SCRIPTS}
+    for mod in kernel_modules() + lab_modules():
+        mod.reset_launch_counts()
+    t0 = time.time()
+    kl = scripts["torch_kernel_lab"].main([])
+    cl = scripts["torch_cumprod_lab"].main([])
+    pr = scripts["torch_segpair_probe"].main([])
+    torch.cuda.synchronize()
+    launches = {k: v for mod in lab_modules()
+                for k, v in mod.launch_counts.items()}
+    log(f"lab path in {time.time() - t0:.1f}s, launches {launches}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"lab kernels never launched on the lab path: "
+                             f"{idle}")
+    check_image(kl["fwd_err"], "V3 vs V0")
+    if not kl["t_out_rel"] <= 1e-5:
+        raise AssertionError(f"V3 vs V0: t_out {kl['t_out_rel']:.3g}")
+    if not kl["bwd_rel"] <= GRAD_RTOL_OF_MAX:
+        raise AssertionError(f"V3 vs V0: dfeats {kl['bwd_rel']:.3g} of "
+                             "max-abs")
+    # the port's two-level scan is the cumulative product: held to v3;
+    # logsum is a different rounding of it and noscan a different
+    # function, both only printed
+    check_image(cl["err_vs_v3"]["twolevel"], "twolevel vs v3")
+    failed = [k for k, v in pr.items() if not math.isfinite(v)]
+    if failed:
+        raise AssertionError(f"probes failed: {failed}")
+    return launches
+
+
+def lab_work(sc):
+    """(fwd bytes, bwd bytes, evaluations) of the chunked kernels over both
+    levels: the whole frames (the kernels read every slot), basis and
+    [T,256] planes read once, outputs written once; the evaluations a
+    compositor needs, sum of min(count, K) x 256."""
+    from edgegaussians_tpu_torch.lab import scene
+    t1, k1 = sc.feats1.shape[:2]
+    t2, k2 = sc.feats2.shape[:2]
+    frames = (t1 * k1 + t2 * k2) * 32
+    plane = (t1 + t2) * 256 * 4
+    common = frames + 2 * sc.basis.numel() * 4 + t2 * 256 * 4   # + t_in2
+    evals = (scene.live_evaluations(sc.counts1, k1)
+             + scene.live_evaluations(sc.counts2, k2))
+    # fwd: img + t_out; bwd: g + total in, prior2 in, dfeats out
+    return (common + 2 * plane, common + 2 * plane + t2 * 256 * 4 + frames,
+            evals)
+
+
+def phase_lab_kernels(device):
+    """Phase 8, each lab kernel against its plain version on the lab
+    scene (level 1, then level 2 fed the plain level 1's t_out) and each
+    probe against its plain version and the oracle; their times."""
+    from edgegaussians_tpu_torch.lab import chunked, probes, scene
+    log("== phase 8: lab kernels vs plain versions on the lab scene, "
+        "level 1 and level 2")
+    sc = scene.bench_scene(device=device)
+    basis, f1, f2, rows = sc.basis, sc.feats1, sc.feats2, sc.rows2
+    gen = torch.Generator(device=device).manual_seed(8)
+    g1 = torch.rand((f1.shape[0], 256), generator=gen, device=device)
+    err, ms, bounds = {}, {}, {}
+    with torch.no_grad():
+        ref1, tref1 = chunked.chunked_fwd_ref(f1, basis)
+        tin2 = tref1[rows].contiguous()
+        ref2, _ = chunked.chunked_fwd_ref(f2, basis, tin2)
+        total = ref1.clone()
+        total[rows] += ref2
+        g2, prior2, total2 = (x[rows].contiguous() for x in (g1, ref1, total))
+        for scan in chunked.SCANS:
+            tol = LOGSUM_TOL if scan == "logsum" else IMG_ATOL
+            outs = [(chunked.chunked_fwd(f1, basis, scan=scan),
+                     chunked.chunked_fwd_ref(f1, basis, scan=scan)),
+                    (chunked.chunked_fwd(f2, basis, tin2, scan=scan),
+                     chunked.chunked_fwd_ref(f2, basis, tin2, scan=scan))]
+            torch.cuda.synchronize()
+            e_img = max((k[0] - r[0]).abs().max().item() for k, r in outs)
+            check_image(e_img, f"lab_fwd_{scan}", tol)
+            e_t = max(check_t_out(k[1], r[1], f"lab_fwd_{scan} level {i + 1}",
+                                  rtol=tol) for i, (k, r) in enumerate(outs))
+            err[f"lab_fwd_{scan}"] = e_img
+            log(f"lab_fwd_{scan}: img_err={e_img:.3g} t_out_rel={e_t:.3g}")
+        d = [(chunked.chunked_bwd(f1, basis, g1, None, None, total),
+              chunked.chunked_bwd_ref(f1, basis, g1, None, None, total)),
+             (chunked.chunked_bwd(f2, basis, g2, tin2, prior2, total2),
+              chunked.chunked_bwd_ref(f2, basis, g2, tin2, prior2, total2))]
+        torch.cuda.synchronize()
+        rel = max(rel_err(k, r, f"lab_bwd_v3 level {i + 1}")
+                  for i, (k, r) in enumerate(d))
+        err["lab_bwd_v3"] = max((k - r).abs().max().item() for k, r in d)
+        log(f"lab_bwd_v3: dfeats_err={err['lab_bwd_v3']:.3g} "
+            f"dfeats_rel={rel:.3g}")
+
+        fwd_b, bwd_b, evals = lab_work(sc)
+        walked = (f1.shape[0] * f1.shape[1] + f2.shape[0] * f2.shape[1]) * 256
+        log(f"lab scene, both levels: {evals} live slot-pixel evaluations "
+            f"of {walked} walked, {fwd_b / 1e6:.2f} MB (fwd) / "
+            f"{bwd_b / 1e6:.2f} MB (bwd)")
+
+        def fwd(f, scan):
+            return lambda: (f(f1, basis, scan=scan),
+                            f(f2, basis, tin2, scan=scan))
+        for scan in chunked.SCANS:
+            name = f"lab_fwd_{scan}"
+            ms[name] = (cuda_ms(fwd(chunked.chunked_fwd, scan), 20),
+                        cuda_ms(fwd(chunked.chunked_fwd_ref, scan), 2), None)
+            bounds[name] = bound_ms(fwd_b, evals, FWD_OPS)
+
+        def bwd(f):
+            return lambda: (f(f1, basis, g1, None, None, total),
+                            f(f2, basis, g2, tin2, prior2, total2))
+        ms["lab_bwd_v3"] = (cuda_ms(bwd(chunked.chunked_bwd), 20),
+                            cuda_ms(bwd(chunked.chunked_bwd_ref), 2), None)
+        bounds["lab_bwd_v3"] = bound_ms(bwd_b, evals, BWD_OPS)
+        for name in [f"lab_fwd_{s}" for s in chunked.SCANS] + ["lab_bwd_v3"]:
+            log(f"{name}: kernel {ms[name][0]:.4f} ms, plain "
+                f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                f"({bounds[name][1]}), both levels")
+
+        p_err, p_ms, p_bounds = phase_lab_probes(device)
+    err.update(p_err)
+    ms.update(p_ms)
+    bounds.update(p_bounds)
+    return err, ms, bounds
+
+
+def probe_library(name: str, t):
+    """One PyTorch call computing case ``name``'s function on its inputs
+    (built beforehand), or None where none does: torch.roll alone lacks
+    the add, and no call keeps a buffer across steps."""
+    from edgegaussians_tpu_torch.lab import probes
+    case = probes.CASES[name]
+    if case.probe == "onehot":
+        ids = torch.arange(t["r8"].shape[1], device=t["r8"].device,
+                           dtype=torch.float32)
+        onehot = (ids[:, None] == t["r8"][0][None, :]).to(torch.float32)
+        return lambda: onehot @ t["c"]
+    if case.probe == "transpose":
+        return lambda: t["x"].t().contiguous()
+    if case.probe in ("dyn_read", "dyn_write"):
+        offs = t["offs"].tolist()
+        idx = torch.cat([torch.arange(o, o + 128, device=t["offs"].device)
+                         for o in offs])
+        if case.probe == "dyn_read":   # the windows' rows, without the x2
+            return lambda: torch.index_select(t["src"], 0, idx)
+        out = torch.zeros((512, 256), device=t["offs"].device)
+        vals = torch.rand((idx.shape[0], 256), device=t["offs"].device)
+        return lambda: out.index_copy_(0, idx, vals)
+    return None
+
+
+def probe_bytes(probe: str, t, out) -> int:
+    """The bytes a probe's function must move on inputs ``t`` with result
+    ``out``: what it reads once and writes once. dyn_read reads and writes
+    only its windows, dyn_write writes only its windows (the rest of its
+    array is undefined in the script), onehot reads only row 0 of the
+    segment ids; the other probes read every input."""
+    offs = t["offs"].numel() * 4 if "offs" in t else 0
+    if probe == "dyn_read":           # each window read, then written x2
+        return offs + 2 * out.numel() * 4
+    if probe == "dyn_write":
+        return offs + t["offs"].numel() * 128 * out.shape[1] * 4
+    if probe == "onehot":
+        return (t["r8"].shape[1] + t["c"].numel() + out.numel()) * 4
+    return sum(x.numel() * x.element_size() for x in t.values()) \
+        + out.numel() * 4
+
+
+def profiled_device_ms(fn, kernel_name: str, calls: int = 50) -> float:
+    """Device time per call of the kernels whose name holds
+    ``kernel_name``, from torch.profiler over ``calls`` calls: at the
+    probes' sizes a call's CUDA-event time is its host dispatch. 0.0 if
+    the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel_name in e.key)
+    return us / calls / 1e3
+
+
+def phase_lab_probes(device):
+    """Each probe kernel on the script's runs against its plain version
+    and the oracle; per probe the times of its runs, summed, beside the
+    bytes bound and the library call's, and its device time from the
+    profiler."""
+    from edgegaussians_tpu_torch.lab import probes
+    err, ms, bounds = {}, {}, {}
+    per = {p: [0.0, 0.0, 0.0, 0.0, True, 0.0] for p in probes.PROBES}
+    for name, case in probes.CASES.items():
+        out_k, e_k, tol = probes.run_case(name, device)
+        out_r, e_r, _ = probes.run_case(name, device, plain=True)
+        torch.cuda.synchronize()
+        if not (e_k <= tol and e_r <= tol):
+            raise AssertionError(f"{name}: oracle error kernel {e_k:.3g}, "
+                                 f"plain {e_r:.3g} > {tol}")
+        key = f"probe_{case.probe}"
+        err[key] = max(err.get(key, 0.0),
+                       (out_k - out_r).abs().max().item())
+        t = probes.case_tensors(name, device)
+        kern, plain = probes.KERNELS[case.probe]
+        lib = probe_library(name, t)
+        acc = per[case.probe]
+        acc[0] += cuda_ms(lambda: case.call(kern, t), 200)
+        acc[1] += cuda_ms(lambda: case.call(plain, t), 200)
+        if lib is None:
+            acc[4] = False
+        else:
+            acc[2] += cuda_ms(lib, 200)
+        acc[3] += probe_bytes(case.probe, t, out_k)
+        acc[5] += profiled_device_ms(lambda: case.call(kern, t),
+                                     f"probe_{case.probe}_kernel")
+        log(f"{name}: oracle error kernel {e_k:.3g} plain {e_r:.3g}, kernel "
+            f"vs plain {(out_k - out_r).abs().max().item():.3g}")
+    for p, (k_ms, p_ms, l_ms, nbytes, has_lib, dev_ms) in per.items():
+        key = f"probe_{p}"
+        ms[key] = (k_ms, p_ms, l_ms if has_lib else None)
+        bounds[key] = bound_ms(nbytes, 0, (0, 0))
+        log(f"{key}: kernel {k_ms:.4f} ms (device "
+            + (f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured")
+            + f", profiler), plain {p_ms:.4f} ms, library "
+            + (f"{l_ms:.4f} ms" if has_lib else "none")
+            + f", bound {bounds[key][0]:.5f} ms ({bounds[key][1]}; "
+            f"{nbytes / 1e6:.3f} MB)")
+    return err, ms, bounds
+
+
 def phase_full(tmp: str):
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     scan = "SYN01"
@@ -1566,6 +1819,34 @@ def phase_full(tmp: str):
         f"comp {per_scan['comp']} F@5/10/20 {f_at[0]} / {f_at[1]} / "
         f"{f_at[2]} (JAX distribution on such scans: chamfer 0.0049 +- "
         "0.0001, F@10 0.995 +- 0.001)")
+
+
+def lab_kernel_rows(launches):
+    """(name, source, replaced TPU kernel, launches) of the lab's kernels."""
+    from edgegaussians_tpu_torch.lab import chunked, probes
+    cl = "scripts/cumprod_lab.py:134 (fwd :165, pallas_call :175) with "
+    probe_lines = {"roll": ":51 (pallas_call :58)",
+                   "onehot": ":66 (pallas_call :82)",
+                   "dyn_write": ":92 (pallas_call :107)",
+                   "dyn_read": ":128 (pallas_call :143)",
+                   "transpose": ":163 (pallas_call :169)",
+                   "vmem_dyn": ":177 (pallas_call :196)"}
+    return [
+        ("lab_fwd_v3", chunked.KERNEL_SOURCE,
+         "scripts/kernel_lab.py:86 (fwd_v3 :116, pallas_call :127); "
+         + cl + "_scan_v3 :55", launches),
+        ("lab_fwd_noscan", chunked.KERNEL_SOURCE, cl + "_scan_none :66",
+         launches),
+        ("lab_fwd_twolevel", chunked.KERNEL_SOURCE,
+         cl + "_scan_twolevel :70", launches),
+        ("lab_fwd_logsum", chunked.KERNEL_SOURCE, cl + "_scan_matmul :116",
+         launches),
+        ("lab_bwd_v3", chunked.KERNEL_SOURCE,
+         "scripts/kernel_lab.py:172 (bwd_v3 :206, pallas_call :224)",
+         launches),
+    ] + [(f"probe_{p}", probes.KERNEL_SOURCE,
+          f"scripts/segpair_mosaic_probe.py{probe_lines[p]}", launches)
+         for p in probes.PROBES]
 
 
 def main() -> int:
@@ -1625,6 +1906,11 @@ def main() -> int:
     log(f"band renders (phase 7a) launched {band_launches['segpair_fwd']} "
         f"of each seg kernel; the shard-sum probe under all-reduce err "
         f"{probe_err:.3g}")
+    lab_launches = phase_lab_path()
+    err_l, ms_l, bounds_l = phase_lab_kernels(device)
+    err.update(err_l)
+    ms.update(ms_l)
+    bounds.update(bounds_l)
     from edgegaussians_tpu_torch.ops import (
         knn, pair, raster_v1, raster_v2, segpair, shard_sum)
     kernels = []
@@ -1654,7 +1940,8 @@ def main() -> int:
              others["single_v1"][0]),
             ("shard_sum", shard_sum.KERNEL_SOURCE,
              "tests/test_vma.py:205, scripts/vma_pallas_repro.py:52",
-             {"shard_sum": probe_launches})):
+             {"shard_sum": probe_launches}),
+            *lab_kernel_rows(lab_launches)):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -17,13 +17,18 @@ Two backends:
 - ``"torch"``: tensors live on the CPU and every kernel's plain PyTorch
   version runs instead. This is the path the CPU tests hold to JAX.
 
+``"auto"`` (the CLI's and ``train()``'s default, and every shipped
+config's ``rasterizer_backend``) means the card: it resolves to
+``"cuda"``, and raises where torch sees no GPU. The CPU runs only when
+the caller names ``"torch"``.
+
 A kernel wrapper chooses by the device of the tensor it is given: a CUDA
 tensor launches the kernel or raises, a CPU tensor takes the plain
 version. Nothing falls back from one to the other.
 
 ``model.rasterizer_backend`` may also name the JAX package's compositor
 choice, ``"pallas"`` or ``"pallas_v1"``: the device then resolves as for
-``"auto"``, and the name selects the single-level frame's compositor
+``"auto"`` (the card), and the name selects the single-level frame's compositor
 (``raster_v2`` or the v1 log-space ``raster_v1``). The JAX package's XLA
 oracle (``"jax"``, ``"reference"``) has no counterpart and is refused.
 """
@@ -45,18 +50,22 @@ def resolve_backend(backend: str = "auto", configured: str = "auto") -> str:
     ``backend`` is the caller's choice (the CLI flag); ``"auto"`` defers to
     ``configured`` (``model.rasterizer_backend``), and ``"auto"`` there,
     or a compositor name (see :func:`resolve_compositor`), picks
-    ``"cuda"`` when a GPU is present and ``"torch"`` otherwise.
+    ``"cuda"``. A backend that resolves to ``"cuda"`` raises where torch
+    sees no GPU: the CPU (``"torch"``) runs only when asked for by name.
     """
     resolve_compositor(configured)          # refuses the XLA oracle
     if backend == "auto":
         backend = "auto" if configured in COMPOSITORS else configured
     if backend == "auto":
-        backend = "cuda" if torch.cuda.is_available() else "torch"
+        backend = "cuda"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port runs "
                          f"{BACKENDS} (or 'auto')")
     if backend == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("backend 'cuda' requested but torch sees no GPU")
+        raise RuntimeError(
+            "backend 'cuda' (what 'auto' and the compositor names resolve "
+            "to) but torch sees no GPU; pass --backend torch (backend="
+            "'torch') to run on the CPU")
     return backend
 
 

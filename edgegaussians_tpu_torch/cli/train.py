@@ -9,6 +9,9 @@ Usage:
     torchrun --nproc_per_node N -m edgegaussians_tpu_torch.cli.train \
         --mesh_tiles N ...      # or --mesh_gauss N, --mesh_views V [...]
 
+``--backend auto`` (the default) trains on the card and exits with an
+error where torch sees no GPU; ``--backend torch`` trains on the CPU.
+
 Same flags and run layout as the JAX CLI (train_gaussians.py:225-346):
 outputs go to ``<output_dir>/<exp_name>_<detector>/<scene>/`` with
 ``gaussians_all.ply``, the final checkpoint ``epoch<N-1>.npz`` and
@@ -101,7 +104,9 @@ def run(argv=None):
     ap.add_argument("--ckpt_path", type=str, default=None)
     ap.add_argument("--force_rerun", action="store_true")
     ap.add_argument("--backend", type=str, default="auto",
-                    choices=["auto", "cuda", "torch"])
+                    choices=["auto", "cuda", "torch"],
+                    help="auto and cuda: the card (an error without "
+                         "one); torch: the CPU")
     ap.add_argument("--profile_dir", type=str, default=None,
                     help="write a torch.profiler Chrome trace of "
                          "steady-state epochs here")

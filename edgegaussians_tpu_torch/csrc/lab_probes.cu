@@ -1,0 +1,294 @@
+// The six lowering probes of the kernel lab for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of scripts/segpair_mosaic_probe.py:
+// probe_roll (:51, call :58), probe_onehot (:66, :82), probe_dyn_write
+// (:92, :107), probe_dyn_read (:128, :143), probe_transpose (:163, :169)
+// and probe_vmem_dyn (:177, :196). On the TPU each asked whether Mosaic
+// lowers one construct the segmented compositor wanted; here each is the
+// Hopper form of that construct, held to the script's NumPy oracle
+// (edgegaussians_tpu_torch/lab/probes.py):
+//
+//   roll       out = x + 0.5 * roll(x, shift, axis): an index roll;
+//   onehot     out[i, :] = sum_j [seg[0, j] == i] * c[j, :]: the one-hot
+//              built in the kernel and reduced with FMAs (a segmented sum;
+//              no library product);
+//   dyn_write  window b, rows [offs[b], offs[b] + win) of out, gets
+//              (b + 1) + row: staged in shared memory, stored with TMA bulk
+//              copies (cp.async.bulk ... bulk_group) at offsets read on the
+//              device; a row that a later window also covers is left to
+//              that window, as the TPU's in-order grid leaves it;
+//   dyn_read   out[b * win + r, :] = 2 * src[offs[b] + r, :]: the window
+//              brought into shared memory with cp.async (16 B per thread)
+//              at offsets read on the device;
+//   transpose  through a 32 x 33 shared tile (the pad keeps the column
+//              reads free of bank conflicts);
+//   vmem_dyn   a scratch buffer [buf_rows, cols], zero at step 0, kept
+//              across the steps: step s reads (or, with rmw, adds x[s]
+//              into) the window at row offs[s]. The TPU keeps the buffer
+//              across SEQUENTIAL grid steps; CUDA blocks run in no order
+//              and share no shared memory, and [264, 256] f32 (270,336 B)
+//              is above the 232,448 B a block may have. So each CTA owns a
+//              128-column slab of the buffer (135,168 B of dynamic shared
+//              memory, after cudaFuncSetAttribute) and loops over the steps
+//              in order: step 1 sees step 0's sums in the rows both
+//              windows cover.
+//
+// Windows whose offset lies outside the array are skipped (the offsets are
+// read on the device, where nothing can raise).
+//
+// What bounds them on this card: bytes, and at the probes' sizes (128 KB
+// to 1 MB moved) launch latency: the least time at 3.35 TB/s is 0.04-0.3
+// us, a launch some microseconds. The designs keep every access coalesced
+// and move each byte once; the probes are about the constructs, not time.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WIN_ROWS_PER_CTA = 16;  // rows of a window one CTA stages
+constexpr int SLAB = 128;             // vmem_dyn: buffer columns per CTA
+constexpr int VMEM_THREADS = 512;
+
+__global__ void __launch_bounds__(THREADS)
+probe_roll_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  int rows, int cols, int shift, int axis) {
+  const int n = rows * cols;
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += gridDim.x * THREADS) {
+    const int r = i / cols;
+    const int c = i % cols;
+    int src;
+    if (axis == 0) {
+      const int rr = ((r - shift) % rows + rows) % rows;
+      src = rr * cols + c;
+    } else {
+      const int cc = ((c - shift) % cols + cols) % cols;
+      src = r * cols + cc;
+    }
+    out[i] = x[i] + 0.5f * x[src];
+  }
+}
+
+// one CTA per output row i; seg row 0 holds the segment id of each c row
+__global__ void __launch_bounds__(THREADS)
+probe_onehot_kernel(const float* __restrict__ seg,
+                    const float* __restrict__ cmat, float* __restrict__ out,
+                    int n_seg, int cols) {
+  extern __shared__ float rloc[];
+  for (int j = threadIdx.x; j < n_seg; j += THREADS) rloc[j] = seg[j];
+  __syncthreads();
+  const float i = static_cast<float>(blockIdx.x);
+  for (int c = threadIdx.x; c < cols; c += THREADS) {
+    float acc = 0.0f;
+    for (int j = 0; j < n_seg; ++j) {
+      const float onehot = rloc[j] == i ? 1.0f : 0.0f;
+      acc = fmaf(onehot, cmat[static_cast<size_t>(j) * cols + c], acc);
+    }
+    out[static_cast<size_t>(blockIdx.x) * cols + c] = acc;
+  }
+}
+
+__device__ __forceinline__ bool window_fits(int off, int win, int rows) {
+  return off >= 0 && off <= rows - win;
+}
+
+// grid (windows, win / WIN_ROWS_PER_CTA)
+__global__ void __launch_bounds__(THREADS)
+probe_dyn_write_kernel(const int* __restrict__ offs, float* out,
+                       int n_win, int win, int rows, int cols) {
+  extern __shared__ __align__(128) float stage[];
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * WIN_ROWS_PER_CTA;
+  const int off = offs[b];
+  if (!window_fits(off, win, rows)) return;   // uniform over the CTA
+  for (int i = threadIdx.x; i < WIN_ROWS_PER_CTA * cols; i += THREADS)
+    stage[i] = static_cast<float>(b + 1) +
+               static_cast<float>(r0 + i / cols);
+  // make the stores visible to the async (TMA) proxy, then one thread
+  // issues the bulk copies
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const uint32_t row_bytes = static_cast<uint32_t>(cols) * 4u;
+  for (int r = 0; r < WIN_ROWS_PER_CTA; ++r) {
+    const int dst_row = off + r0 + r;
+    bool later = false;   // a later window writes this row after this one
+    for (int b2 = b + 1; b2 < n_win; ++b2) {
+      const int o2 = offs[b2];
+      later |= window_fits(o2, win, rows) && dst_row >= o2 &&
+               dst_row < o2 + win;
+    }
+    if (later) continue;
+    float* dst = out + static_cast<size_t>(dst_row) * cols;
+    const uint32_t src = static_cast<uint32_t>(
+        __cvta_generic_to_shared(stage + static_cast<size_t>(r) * cols));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(dst), "r"(src), "r"(row_bytes) : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// grid (windows, win / WIN_ROWS_PER_CTA)
+__global__ void __launch_bounds__(THREADS)
+probe_dyn_read_kernel(const int* __restrict__ offs,
+                      const float* __restrict__ src,
+                      float* __restrict__ out, int win, int rows,
+                      int cols) {
+  extern __shared__ __align__(128) float stage[];
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * WIN_ROWS_PER_CTA;
+  const int off = offs[b];
+  if (!window_fits(off, win, rows)) return;
+  const float* from = src + static_cast<size_t>(off + r0) * cols;
+  const int n16 = WIN_ROWS_PER_CTA * cols / 4;
+  for (int i = threadIdx.x; i < n16; i += THREADS) {
+    const uint32_t dst = static_cast<uint32_t>(
+        __cvta_generic_to_shared(stage + 4 * i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(from + 4 * i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  float* to = out + (static_cast<size_t>(b) * win + r0) * cols;
+  for (int i = threadIdx.x; i < WIN_ROWS_PER_CTA * cols; i += THREADS)
+    to[i] = stage[i] * 2.0f;
+}
+
+// block (32, 8), grid (cdiv(cols, 32), cdiv(rows, 32)): out [cols, rows]
+__global__ void probe_transpose_kernel(const float* __restrict__ x,
+                                       float* __restrict__ out, int rows,
+                                       int cols) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32;
+  const int r0 = blockIdx.y * 32;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int r = r0 + j;
+    const int c = c0 + threadIdx.x;
+    if (r < rows && c < cols)
+      tile[j][threadIdx.x] = x[static_cast<size_t>(r) * cols + c];
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int c = c0 + j;
+    const int r = r0 + threadIdx.x;
+    if (c < cols && r < rows)
+      out[static_cast<size_t>(c) * rows + r] = tile[threadIdx.x][j];
+  }
+}
+
+// grid cols / SLAB: CTA s owns columns [s * SLAB, (s + 1) * SLAB) of the
+// buffer and of x / out [steps, win, cols]
+__global__ void __launch_bounds__(VMEM_THREADS)
+probe_vmem_dyn_kernel(const int* __restrict__ offs,
+                      const float* __restrict__ x, float* __restrict__ out,
+                      int steps, int win, int cols, int buf_rows, int rmw) {
+  extern __shared__ __align__(16) float buf[];
+  const int c0 = blockIdx.x * SLAB;
+  for (int i = threadIdx.x; i < buf_rows * SLAB; i += VMEM_THREADS)
+    buf[i] = 0.0f;
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {   // the TPU's sequential grid, in order
+    const int off = offs[s];
+    if (window_fits(off, win, buf_rows)) {
+      for (int i = threadIdx.x; i < win * SLAB; i += VMEM_THREADS) {
+        const int r = i / SLAB;
+        const int c = i % SLAB;
+        const size_t xi = (static_cast<size_t>(s) * win + r) * cols + c0 + c;
+        float* cell = buf + (off + r) * SLAB + c;
+        if (rmw) {
+          *cell += x[xi];
+          out[xi] = *cell;
+        } else {
+          out[xi] = *cell * 0.0f + x[xi] * 2.0f;
+        }
+      }
+    }
+    __syncthreads();   // the next step's window may overlap this one
+  }
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on `stream` and returns its first CUDA error (0 = ok).
+
+int probe_roll(const float* x, float* out, int rows, int cols, int shift,
+               int axis, void* stream) {
+  const int blocks = cdiv(rows * cols, THREADS);
+  if (blocks > 0) {
+    probe_roll_kernel<<<blocks, THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        x, out, rows, cols, shift, axis);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_onehot(const float* seg, const float* cmat, float* out, int n_seg,
+                 int cols, void* stream) {
+  if (n_seg > 0) {
+    probe_onehot_kernel<<<n_seg, THREADS, n_seg * sizeof(float),
+                          static_cast<cudaStream_t>(stream)>>>(
+        seg, cmat, out, n_seg, cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// win is a multiple of WIN_ROWS_PER_CTA; cols of 4 (16-byte rows)
+int probe_dyn_write(const int* offs, float* out, int n_win, int win,
+                    int rows, int cols, void* stream) {
+  if (n_win > 0) {
+    probe_dyn_write_kernel<<<dim3(n_win, win / WIN_ROWS_PER_CTA), THREADS,
+                             WIN_ROWS_PER_CTA * cols * sizeof(float),
+                             static_cast<cudaStream_t>(stream)>>>(
+        offs, out, n_win, win, rows, cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_dyn_read(const int* offs, const float* src, float* out, int n_win,
+                   int win, int rows, int cols, void* stream) {
+  if (n_win > 0) {
+    probe_dyn_read_kernel<<<dim3(n_win, win / WIN_ROWS_PER_CTA), THREADS,
+                            WIN_ROWS_PER_CTA * cols * sizeof(float),
+                            static_cast<cudaStream_t>(stream)>>>(
+        offs, src, out, win, rows, cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_transpose(const float* x, float* out, int rows, int cols,
+                    void* stream) {
+  if (rows > 0 && cols > 0) {
+    probe_transpose_kernel<<<dim3(cdiv(cols, 32), cdiv(rows, 32)),
+                             dim3(32, 8), 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        x, out, rows, cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols is a multiple of SLAB; buf_rows * SLAB * 4 B fits a block
+int probe_vmem_dyn(const int* offs, const float* x, float* out, int steps,
+                   int win, int cols, int buf_rows, int rmw, void* stream) {
+  const int smem = buf_rows * SLAB * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_vmem_dyn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cols > 0) {
+    probe_vmem_dyn_kernel<<<cols / SLAB, VMEM_THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+        offs, x, out, steps, win, cols, buf_rows, rmw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

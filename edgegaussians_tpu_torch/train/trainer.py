@@ -458,7 +458,10 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
           mesh=None, mesh_strategy: str = "tiles") -> TrainState:
     """Full training run on one scene (train_gaussians.py:144-222).
 
-    ``scene`` is a SceneViews. ``view_orders[e]``, when given, replaces
+    ``scene`` is a SceneViews. ``backend`` resolves as
+    :func:`edgegaussians_tpu_torch.resolve_backend` does: ``"auto"``
+    trains on the card and raises where torch sees none; ``"torch"``
+    trains on the CPU. ``view_orders[e]``, when given, replaces
     epoch e's random view permutation, ``density_noise[e]`` epoch e's
     duplication noise and ``bg_scores[r]`` render r's bg_edge_ratio
     scores (in view-batch mode: batch step r's, one row per view of the

@@ -45,7 +45,7 @@ def test_port_never_imports_jax():
         "'edgegaussians_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "assert len(names) >= 41, names\n"
+        "assert len(names) >= 56, names\n"
         "bad = [m for m in sys.modules if m in ('jax', 'edgegaussians_tpu')\n"
         "       or m.startswith(('jax.', 'edgegaussians_tpu.'))]\n"
         "assert not bad, bad\n")
@@ -56,22 +56,31 @@ def test_port_never_imports_jax():
 
 
 def test_resolve_backend():
+    """'auto' means the card: it resolves to 'cuda' and raises where
+    torch sees no GPU; the CPU runs only when named."""
     assert resolve_backend("torch") == "torch"
     assert resolve_backend("auto", "torch") == "torch"
-    expected = "cuda" if torch.cuda.is_available() else "torch"
-    assert resolve_backend("auto", "auto") == expected
+    assert resolve_backend("torch", "auto") == "torch"
     with pytest.raises(ValueError):
         resolve_backend("pallas")
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            resolve_backend("cuda")
+    if torch.cuda.is_available():
+        assert resolve_backend("auto", "auto") == "cuda"
+        assert resolve_backend("cuda") == "cuda"
+    else:
+        for backend, configured in (("auto", "auto"), ("cuda", "auto"),
+                                    ("auto", "cuda"), ("cuda", "torch")):
+            with pytest.raises(RuntimeError, match="--backend torch"):
+                resolve_backend(backend, configured)
 
 
 def test_configured_compositor_resolves_the_device_as_auto():
     from edgegaussians_tpu_torch import resolve_compositor
-    expected = "cuda" if torch.cuda.is_available() else "torch"
     for name in ("pallas", "pallas_v1"):
-        assert resolve_backend("auto", name) == expected
+        if torch.cuda.is_available():
+            assert resolve_backend("auto", name) == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="sees no GPU"):
+                resolve_backend("auto", name)
         assert resolve_backend("torch", name) == "torch"
         assert resolve_compositor(name) == name
     for name in ("auto", "cuda", "torch"):

@@ -1,6 +1,7 @@
 """The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu,
-csrc/raster_v2.cu, csrc/knn.cu, csrc/pair.cu, csrc/raster_v1.cu and
-csrc/shard_sum.cu) held to their plain PyTorch versions, on a GPU.
+csrc/raster_v2.cu, csrc/knn.cu, csrc/pair.cu, csrc/raster_v1.cu,
+csrc/shard_sum.cu, and the kernel lab's csrc/lab_chunked.cu and
+csrc/lab_probes.cu) held to their plain PyTorch versions, on a GPU.
 
 Every test here needs the card and skips where torch sees none. The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -28,12 +29,19 @@ The shard-sum probe: rtol 1e-5 of a float64 sum (uniform draws, so no
 cancellation; the kernel's per-thread sums and tree add in another order
 than the plain version), the same bits on a second launch. Band mode on
 the seg path: GPU against CPU with the whole-rasterizer tolerances.
+The lab's chunked-scan kernels: image atol 1e-5 and t_out rtol 1e-5 where
+>= 1e-4 (5e-5 for the log-space ``logsum`` form, whose sums run in another
+order than the plain cumsum), dfeats 1e-4 of the plain version's max-abs;
+the probes exactly equal to their plain versions and oracles (the one-hot
+sum within 1e-5).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from edgegaussians_tpu_torch.lab import chunked, probes
+from edgegaussians_tpu_torch.lab import scene as lab_scene
 from edgegaussians_tpu_torch.ops import knn as knn_mod
 from edgegaussians_tpu_torch.ops import (
     pair, raster_v1, raster_v2, segpair, shard_sum, tiles)
@@ -659,3 +667,136 @@ def test_band_render_on_gpu_matches_cpu_path(device, band):
             torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
         else:
             torch.testing.assert_close(a, b, rtol=2e-3, atol=3e-4, msg=nm)
+
+
+def _lab_planes(seed, t):
+    """A cotangent, a prior and a total [t,256] for the lab backward."""
+    r = np.random.default_rng(seed)
+    return [r.uniform(lo, hi, (t, 256)).astype(np.float32)
+            for lo, hi in ((-1, 1), (0, 0.3), (0.3, 1.0))]
+
+
+def _check_lab_fwd(got, ref, scan):
+    tol = 5e-5 if scan == "logsum" else 1e-5
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=tol)
+    live = ref[1] >= 1e-4
+    torch.testing.assert_close(got[1][live], ref[1][live], rtol=tol, atol=0)
+    assert bool((got[1][~live] < 1e-4).all())
+
+
+@pytest.mark.parametrize("scan", list(chunked.SCANS))
+@pytest.mark.parametrize("with_t_in", [False, True])
+def test_lab_chunked_fwd_kernels_match_plain_versions(device, scan,
+                                                      with_t_in):
+    """tests/test_torch_lab.py's shapes: 20 rows of 256 slots (two
+    128-slot chunks, so the carry runs), dead slots at -1e30."""
+    feats, _, t_in, _ = (torch.from_numpy(x).to(device) for x in
+                         _random_frame(7, t=20, k=256))
+    t_in = t_in if with_t_in else None
+    basis = tiles.pixel_basis(16, device=device)
+    key = f"lab_fwd_{scan}"
+    before = chunked.launch_counts[key]
+    got = chunked.chunked_fwd(feats, basis, t_in, scan=scan)
+    again = chunked.chunked_fwd(feats, basis, t_in, scan=scan)
+    torch.cuda.synchronize()
+    assert chunked.launch_counts[key] == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _check_lab_fwd(got, chunked.chunked_fwd_ref(feats, basis, t_in,
+                                                scan=scan), scan)
+
+
+def test_lab_chunked_bwd_kernel_matches_plain_version(device):
+    feats, _, t_in, _ = (torch.from_numpy(x).to(device) for x in
+                         _random_frame(8, t=20, k=256))
+    g, prior, total = (torch.from_numpy(x).to(device)
+                       for x in _lab_planes(8, 20))
+    basis = tiles.pixel_basis(16, device=device)
+    before = chunked.launch_counts["lab_bwd_v3"]
+    for args in ((None, None), (t_in, prior)):
+        got = chunked.chunked_bwd(feats, basis, g, *args, total)
+        again = chunked.chunked_bwd(feats, basis, g, *args, total)
+        torch.cuda.synchronize()
+        ref = chunked.chunked_bwd_ref(feats, basis, g, *args, total)
+        assert torch.equal(got, again), "dfeats changed between launches"
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
+        assert bool((got[..., 6:] == 0).all())
+    assert chunked.launch_counts["lab_bwd_v3"] == before + 4
+
+
+def test_lab_kernels_on_the_full_lab_frame(device):
+    """The JAX labs' scene: the level-1 frame [2500,128,8] and the level-2
+    frame [625,384,8] fed level 1's t_out, every form and the backward."""
+    sc = lab_scene.bench_scene(device=device)
+    basis, rows = sc.basis, sc.rows2
+    assert sc.feats1.shape == (2500, 128, 8)
+    assert sc.feats2.shape == (625, 384, 8)
+    ref1, tref1 = chunked.chunked_fwd_ref(sc.feats1, basis)
+    tin2 = tref1[rows].contiguous()
+    ref2, _ = chunked.chunked_fwd_ref(sc.feats2, basis, tin2)
+    for scan in chunked.SCANS:
+        _check_lab_fwd(chunked.chunked_fwd(sc.feats1, basis, scan=scan),
+                       chunked.chunked_fwd_ref(sc.feats1, basis, scan=scan),
+                       scan)
+        _check_lab_fwd(chunked.chunked_fwd(sc.feats2, basis, tin2,
+                                           scan=scan),
+                       chunked.chunked_fwd_ref(sc.feats2, basis, tin2,
+                                               scan=scan), scan)
+    total = ref1.clone()
+    total[rows] += ref2
+    g1 = torch.ones_like(ref1)
+    for args in ((sc.feats1, basis, g1, None, None, total),
+                 (sc.feats2, basis, g1[rows].contiguous(), tin2,
+                  ref1[rows].contiguous(), total[rows].contiguous())):
+        got = chunked.chunked_bwd(*args)
+        ref = chunked.chunked_bwd_ref(*args)
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+def test_lab_chunked_wrappers_check_inputs(device):
+    feats = torch.zeros((4, 128, 8), device=device)
+    basis = tiles.pixel_basis(16, device=device)
+    with pytest.raises(ValueError, match="chunks of 48"):
+        chunked.chunked_fwd(feats, basis, chunk=48)   # 128 % 48 != 0
+    with pytest.raises(ValueError, match="multiple"):
+        chunked.chunked_fwd(torch.zeros((4, 64, 8), device=device), basis,
+                            chunk=16)
+    with pytest.raises(TypeError):
+        chunked.chunked_fwd(feats.double(), basis)
+    with pytest.raises(ValueError, match="contiguous"):
+        chunked.chunked_fwd(torch.zeros((4, 8, 128), device=device)
+                            .transpose(1, 2), basis)
+    with pytest.raises(ValueError, match="all inputs"):
+        chunked.chunked_fwd(feats, basis.cpu())
+    with pytest.raises(ValueError):
+        chunked.chunked_bwd(feats, basis, torch.zeros((3, 256),
+                                                      device=device),
+                            None, None, torch.zeros((4, 256),
+                                                    device=device))
+
+
+@pytest.mark.parametrize("name", list(probes.CASES))
+def test_lab_probe_kernels_match_plain_versions_and_oracles(device, name):
+    key = f"probe_{probes.CASES[name].probe}"
+    before = probes.launch_counts[key]
+    out, err, tol = probes.run_case(name, device)
+    torch.cuda.synchronize()
+    assert probes.launch_counts[key] == before + 1
+    assert err <= tol, (name, err)
+    ref, _, _ = probes.run_case(name, device, plain=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+def test_lab_probe_windows_overlap_and_out_of_range(device):
+    """Of two overlapping window writes the later wins; a window past the
+    array is skipped (write and read)."""
+    offs = torch.tensor([40, 60, 500], dtype=torch.int32, device=device)
+    got = probes.probe_dyn_write(offs, 256, 8, 128)
+    torch.testing.assert_close(got, probes.probe_dyn_write_ref(offs, 256, 8,
+                                                               128))
+    src = torch.arange(512 * 4, dtype=torch.float32,
+                       device=device).reshape(512, 4)
+    roffs = torch.tensor([0, 400], dtype=torch.int32, device=device)
+    torch.testing.assert_close(probes.probe_dyn_read(src, roffs),
+                               probes.probe_dyn_read_ref(src, roffs))

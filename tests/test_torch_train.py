@@ -273,13 +273,27 @@ def test_train_cli_refuses_mesh_flags(cfg_path):
     """A mesh of several ranks outside torchrun exits with the command
     that launches it; --mesh_gauss does not combine with --mesh_tiles."""
     path, _ = cfg_path()
-    argv = ["--config_file", path, "--scene_name", SCAN]
+    argv = ["--config_file", path, "--scene_name", SCAN, "--backend",
+            "torch"]
     with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2 "):
         train_cli.main(argv + ["--mesh_tiles", "2"])
     with pytest.raises(SystemExit, match="torchrun --nproc_per_node 4 "):
         train_cli.main(argv + ["--mesh_views", "2", "--mesh_gauss", "2"])
     with pytest.raises(SystemExit, match="cannot combine"):
         train_cli.main(argv + ["--mesh_tiles", "2", "--mesh_gauss", "2"])
+
+
+def test_train_cli_without_backend_needs_a_gpu(cfg_path):
+    """No --backend means 'auto', which means the card: where torch sees
+    no GPU the CLI raises before it trains and writes nothing; --backend
+    torch is how a run asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where torch sees no GPU")
+    path, d = cfg_path()
+    with pytest.raises(RuntimeError, match="--backend torch"):
+        train_cli.main(["--config_file", path, "--scene_name", SCAN])
+    assert not os.path.exists(os.path.join(d["output"]["output_dir"],
+                                           "t_DexiNed", SCAN))
 
 
 @pytest.mark.parametrize("flags,steps", [
@@ -293,7 +307,8 @@ def test_train_cli_runs_one_rank_meshes(cfg_path, flags, steps):
     of one batch of all 3 views); the single-device run's outputs."""
     path, d = cfg_path()
     assert train_cli.main(["--config_file", path, "--scene_name", SCAN,
-                           "--force_rerun"] + flags) == 0
+                           "--backend", "torch", "--force_rerun"]
+                          + flags) == 0
     out = os.path.join(d["output"]["output_dir"], "t_DexiNed", SCAN)
     with np.load(os.path.join(out, "epoch1.npz")) as ck:
         assert int(ck["f:.step"]) == steps
