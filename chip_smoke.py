@@ -91,7 +91,11 @@ Phases, in order; any failure exits non-zero:
    each probe kernel against its plain version and the script's oracle,
    with times beside the bound and, where one PyTorch call computes the
    same function, that call's (and each probe's device time from
-   torch.profiler).
+   torch.profiler). Last, the host cost of a dyn_write and a dyn_read
+   call split into its parts (argument checks, allocation, stream lookup,
+   the ctypes call with its launch, the whole wrapper), each beside the
+   form it replaced, and the device activities per call from the
+   profiler, which must be one kernel.
 
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
@@ -114,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import importlib.util
 import io
 import json
@@ -206,6 +211,7 @@ SHARD_ROWS = 16384          # rows of the probe's shard per rank
 LAB_SCRIPTS = ("torch_kernel_lab", "torch_cumprod_lab",
                "torch_segpair_probe")
 LOGSUM_TOL = 5e-5
+HOST_CALLS = 2000           # calls per part of phase 8's host-cost split
 
 
 def run(cmd) -> str:
@@ -1709,25 +1715,28 @@ def probe_library(name: str, t):
 def probe_bytes(probe: str, t, out) -> int:
     """The bytes a probe's function must move on inputs ``t`` with result
     ``out``: what it reads once and writes once. dyn_read reads and writes
-    only its windows, dyn_write writes only its windows (the rest of its
-    array is undefined in the script), onehot reads only row 0 of the
-    segment ids; the other probes read every input."""
+    only its windows, dyn_write writes its whole array (the port's
+    function zeroes the rows outside the windows, which the script leaves
+    undefined), onehot reads only row 0 of the segment ids; the other
+    probes read every input."""
     offs = t["offs"].numel() * 4 if "offs" in t else 0
     if probe == "dyn_read":           # each window read, then written x2
         return offs + 2 * out.numel() * 4
-    if probe == "dyn_write":
-        return offs + t["offs"].numel() * 128 * out.shape[1] * 4
+    if probe == "dyn_write":          # the whole array, zero outside
+        return offs + out.numel() * 4
     if probe == "onehot":
         return (t["r8"].shape[1] + t["c"].numel() + out.numel()) * 4
     return sum(x.numel() * x.element_size() for x in t.values()) \
         + out.numel() * 4
 
 
-def profiled_device_ms(fn, kernel_name: str, calls: int = 50) -> float:
-    """Device time per call of the kernels whose name holds
-    ``kernel_name``, from torch.profiler over ``calls`` calls: at the
-    probes' sizes a call's CUDA-event time is its host dispatch. 0.0 if
-    the profiler saw no such kernel."""
+def profiled_device(fn, kernel_name: str, calls: int = 50):
+    """(device ms per call of the kernels whose name holds
+    ``kernel_name``, device activities per call: kernels, fills and
+    copies of any name), from torch.profiler over ``calls`` calls: at the
+    probes' sizes a call's CUDA-event time is its host dispatch. (0.0,
+    0.0) if the profiler saw no device activity."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1736,9 +1745,106 @@ def profiled_device_ms(fn, kernel_name: str, calls: int = 50) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in device
              if kernel_name in e.key)
-    return us / calls / 1e3
+    return us / calls / 1e3, sum(e.count for e in device) / calls
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls, on
+    time.perf_counter_ns, started after torch.cuda.synchronize()."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter_ns() - t0) / calls / 1e3
+    torch.cuda.synchronize()
+    return us
+
+
+def probe_host_split(device) -> dict:
+    """Phase 8: the host cost of a dyn_write and a dyn_read call (the
+    script's runs P4 and P5), part by part, in microseconds per call over
+    HOST_CALLS calls: the argument checks, the allocation, the stream
+    lookup, the ctypes call with its launch, and the whole wrapper; beside
+    each part the form it replaced (torch.zeros, a torch.cuda.Stream
+    object, prototypes set at every call), and the device activities per
+    wrapper call from the profiler. Raises unless that is one kernel."""
+    from edgegaussians_tpu_torch.lab import probes
+    from edgegaussians_tpu_torch.ops import _build
+    t = {p: probes.case_tensors(name, device) for p, name in
+         (("dyn_write", "P4 dyn-offset-DMA-write"),
+          ("dyn_read", "P5 dyn-offset-DMA-read"))}
+    offs_w, offs_r, src = t["dyn_write"]["offs"], t["dyn_read"]["offs"], \
+        t["dyn_read"]["src"]
+    rows, cols, win = 512, 256, 128            # the script's P4 array
+    dev = offs_w.device                        # with its index
+    out_w = torch.empty((rows, cols), device=dev)
+    out_r = torch.empty((offs_r.shape[0] * win, src.shape[1]), device=dev)
+    stream = _build.stream(dev)
+    cases = {
+        "dyn_write": dict(
+            checks=lambda: (probes._check_offs(offs_w, offs_w.device),
+                            probes._check_windows(win, cols)),
+            shape=out_w.shape,
+            args=(offs_w.data_ptr(), out_w.data_ptr(), offs_w.shape[0], win,
+                  rows, cols, stream),
+            call=lambda: probes.probe_dyn_write(offs_w, rows, cols, win)),
+        "dyn_read": dict(
+            checks=lambda: (probes._check_2d("src", src),
+                            probes._check_offs(offs_r, src.device),
+                            probes._check_windows(win, src.shape[1]),
+                            src.data_ptr() % 16),
+            shape=out_r.shape,
+            args=(offs_r.data_ptr(), src.data_ptr(), out_r.data_ptr(),
+                  offs_r.shape[0], win, src.shape[0], src.shape[1], stream),
+            call=lambda: probes.probe_dyn_read(src, offs_r, win)),
+    }
+    split = {}
+    for p, c in cases.items():
+        name = f"probe_{p}"
+        argtypes = probes.ARGTYPES[name]
+
+        def per_call_prototypes():      # the replaced launch path
+            fn = getattr(_build.load("lab_probes"), name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+            return fn(*c["args"])
+
+        us = {
+            "checks": host_us(c["checks"]),
+            "alloc_empty": host_us(lambda: torch.empty(
+                c["shape"], dtype=torch.float32, device=dev)),
+            "alloc_zeros": host_us(lambda: torch.zeros(
+                c["shape"], dtype=torch.float32, device=dev)),
+            "stream_raw": host_us(lambda: _build.stream(dev)),
+            "stream_object": host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "ctypes_launch": host_us(lambda: _build.launch(
+                "lab_probes", name, argtypes, c["args"])),
+            "ctypes_launch_per_call_prototypes": host_us(
+                per_call_prototypes),
+            "wrapper": host_us(c["call"]),
+        }
+        _, per_call = profiled_device(c["call"], name)
+        us["device_activities_per_call"] = per_call
+        split[p] = us
+        log(f"{name} host us per call ({HOST_CALLS} calls each): checks "
+            f"{us['checks']:.3f}, allocation torch.empty "
+            f"{us['alloc_empty']:.3f} (torch.zeros {us['alloc_zeros']:.3f}),"
+            f" stream lookup raw {us['stream_raw']:.3f} (Stream object "
+            f"{us['stream_object']:.3f}), ctypes call + launch "
+            f"{us['ctypes_launch']:.3f} (prototypes set per call "
+            f"{us['ctypes_launch_per_call_prototypes']:.3f}), whole wrapper "
+            f"{us['wrapper']:.3f}; device activities per call "
+            f"{per_call:.2f} (profiler)")
+        if per_call != 1.0:
+            raise AssertionError(f"{name}: {per_call} device activities per "
+                                 "call, expected one kernel")
+    return split
 
 
 def phase_lab_probes(device):
@@ -1770,8 +1876,8 @@ def phase_lab_probes(device):
         else:
             acc[2] += cuda_ms(lib, 200)
         acc[3] += probe_bytes(case.probe, t, out_k)
-        acc[5] += profiled_device_ms(lambda: case.call(kern, t),
-                                     f"probe_{case.probe}_kernel")
+        acc[5] += profiled_device(lambda: case.call(kern, t),
+                                  f"probe_{case.probe}_kernel")[0]
         log(f"{name}: oracle error kernel {e_k:.3g} plain {e_r:.3g}, kernel "
             f"vs plain {(out_k - out_r).abs().max().item():.3g}")
     for p, (k_ms, p_ms, l_ms, nbytes, has_lib, dev_ms) in per.items():
@@ -1784,6 +1890,7 @@ def phase_lab_probes(device):
             + (f"{l_ms:.4f} ms" if has_lib else "none")
             + f", bound {bounds[key][0]:.5f} ms ({bounds[key][1]}; "
             f"{nbytes / 1e6:.3f} MB)")
+    probe_host_split(device)
     return err, ms, bounds
 
 

@@ -13,13 +13,21 @@
 //              built in the kernel and reduced with FMAs (a segmented sum;
 //              no library product);
 //   dyn_write  window b, rows [offs[b], offs[b] + win) of out, gets
-//              (b + 1) + row: staged in shared memory, stored with TMA bulk
-//              copies (cp.async.bulk ... bulk_group) at offsets read on the
-//              device; a row that a later window also covers is left to
-//              that window, as the TPU's in-order grid leaves it;
-//   dyn_read   out[b * win + r, :] = 2 * src[offs[b] + r, :]: the window
-//              brought into shared memory with cp.async (16 B per thread)
-//              at offsets read on the device;
+//              (b + 1) + row, the rest of out 0: owner-computes. Each CTA
+//              owns a block of output rows and loads offs into shared
+//              memory once; per row it finds the LAST fitting window that
+//              covers it (a later window wins, as on the TPU's in-order
+//              grid) and stores that row's value, or 0, with 16-byte
+//              coalesced stores. No row is written twice, nothing scans
+//              serially, and no separate fill runs: one launch writes every
+//              element. Plain vector stores, not a TMA bulk store of the
+//              CTA's block: the bulk store moves the same bytes, after a
+//              shared-memory stage and a proxy fence.
+//   dyn_read   out[b * win + r, :] = 2 * src[offs[b] + r, :], or 0 where
+//              window b does not fit: the same shape. Each CTA owns a block
+//              of output rows, maps each to its source row (or none) once,
+//              and copies with 16-byte vector loads and stores; one launch
+//              writes every element;
 //   transpose  through a 32 x 33 shared tile (the pad keeps the column
 //              reads free of bank conflicts);
 //   vmem_dyn   a scratch buffer [buf_rows, cols], zero at step 0, kept
@@ -37,17 +45,19 @@
 // read on the device, where nothing can raise).
 //
 // What bounds them on this card: bytes, and at the probes' sizes (128 KB
-// to 1 MB moved) launch latency: the least time at 3.35 TB/s is 0.04-0.3
-// us, a launch some microseconds. The designs keep every access coalesced
-// and move each byte once; the probes are about the constructs, not time.
+// to 1 MB moved; dyn_write 0.5 MB written, dyn_read 0.25 MB read and 0.25
+// MB written) launch latency: the least time at 3.35 TB/s is 0.04-0.3 us,
+// a launch some microseconds. The designs keep every access coalesced and
+// move each byte once, in one launch per call; the probes are about the
+// constructs, not time.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WIN_ROWS_PER_CTA = 16;  // rows of a window one CTA stages
+constexpr int VEC_PER_CTA = 512;      // dyn_write / dyn_read: 16-byte
+                                      // vectors a CTA stores, 2 a thread
 constexpr int SLAB = 128;             // vmem_dyn: buffer columns per CTA
 constexpr int VMEM_THREADS = 512;
 
@@ -94,69 +104,72 @@ __device__ __forceinline__ bool window_fits(int off, int win, int rows) {
   return off >= 0 && off <= rows - win;
 }
 
-// grid (windows, win / WIN_ROWS_PER_CTA)
+// grid cdiv(rows, rows_per_cta): CTA k owns output rows [k * rows_per_cta,
+// (k + 1) * rows_per_cta); out is [rows, cols4] 16-byte vectors. Dynamic
+// shared memory: n_win offsets, then one value per owned row.
 __global__ void __launch_bounds__(THREADS)
-probe_dyn_write_kernel(const int* __restrict__ offs, float* out,
-                       int n_win, int win, int rows, int cols) {
-  extern __shared__ __align__(128) float stage[];
-  const int b = blockIdx.x;
-  const int r0 = blockIdx.y * WIN_ROWS_PER_CTA;
-  const int off = offs[b];
-  if (!window_fits(off, win, rows)) return;   // uniform over the CTA
-  for (int i = threadIdx.x; i < WIN_ROWS_PER_CTA * cols; i += THREADS)
-    stage[i] = static_cast<float>(b + 1) +
-               static_cast<float>(r0 + i / cols);
-  // make the stores visible to the async (TMA) proxy, then one thread
-  // issues the bulk copies
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+probe_dyn_write_kernel(const int* __restrict__ offs, float4* __restrict__ out,
+                       int n_win, int win, int rows, int cols4,
+                       int rows_per_cta) {
+  extern __shared__ int s_offs[];
+  float* s_val = reinterpret_cast<float*>(s_offs + n_win);
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int n_rows = min(rows_per_cta, rows - r0);
+  for (int b = threadIdx.x; b < n_win; b += THREADS) s_offs[b] = offs[b];
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  const uint32_t row_bytes = static_cast<uint32_t>(cols) * 4u;
-  for (int r = 0; r < WIN_ROWS_PER_CTA; ++r) {
-    const int dst_row = off + r0 + r;
-    bool later = false;   // a later window writes this row after this one
-    for (int b2 = b + 1; b2 < n_win; ++b2) {
-      const int o2 = offs[b2];
-      later |= window_fits(o2, win, rows) && dst_row >= o2 &&
-               dst_row < o2 + win;
+  for (int r = threadIdx.x; r < n_rows; r += THREADS) {
+    const int row = r0 + r;
+    float v = 0.0f;
+    for (int b = n_win - 1; b >= 0; --b) {   // the last covering window wins
+      const int off = s_offs[b];
+      if (window_fits(off, win, rows) && row >= off && row < off + win) {
+        v = static_cast<float>(b + 1) + static_cast<float>(row - off);
+        break;
+      }
     }
-    if (later) continue;
-    float* dst = out + static_cast<size_t>(dst_row) * cols;
-    const uint32_t src = static_cast<uint32_t>(
-        __cvta_generic_to_shared(stage + static_cast<size_t>(r) * cols));
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-        :: "l"(dst), "r"(src), "r"(row_bytes) : "memory");
+    s_val[r] = v;
   }
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  float4* to = out + static_cast<size_t>(r0) * cols4;
+  const int n_vec = n_rows * cols4;
+  for (int i = threadIdx.x; i < n_vec; i += THREADS) {
+    const float v = s_val[i / cols4];
+    to[i] = make_float4(v, v, v, v);
+  }
 }
 
-// grid (windows, win / WIN_ROWS_PER_CTA)
+// grid cdiv(n_win * win, rows_per_cta): CTA k owns rows [k * rows_per_cta,
+// (k + 1) * rows_per_cta) of out [n_win * win, cols4]; src [rows, cols4].
+// Static shared memory: each owned row's source row, -1 for none.
 __global__ void __launch_bounds__(THREADS)
 probe_dyn_read_kernel(const int* __restrict__ offs,
-                      const float* __restrict__ src,
-                      float* __restrict__ out, int win, int rows,
-                      int cols) {
-  extern __shared__ __align__(128) float stage[];
-  const int b = blockIdx.x;
-  const int r0 = blockIdx.y * WIN_ROWS_PER_CTA;
-  const int off = offs[b];
-  if (!window_fits(off, win, rows)) return;
-  const float* from = src + static_cast<size_t>(off + r0) * cols;
-  const int n16 = WIN_ROWS_PER_CTA * cols / 4;
-  for (int i = threadIdx.x; i < n16; i += THREADS) {
-    const uint32_t dst = static_cast<uint32_t>(
-        __cvta_generic_to_shared(stage + 4 * i));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(from + 4 * i) : "memory");
+                      const float4* __restrict__ src,
+                      float4* __restrict__ out, int n_win, int win, int rows,
+                      int cols4, int rows_per_cta) {
+  __shared__ int s_src[VEC_PER_CTA];
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int n_rows = min(rows_per_cta, n_win * win - r0);
+  for (int r = threadIdx.x; r < n_rows; r += THREADS) {
+    const int row = r0 + r;
+    const int b = row / win;
+    const int off = offs[b];
+    s_src[r] = window_fits(off, win, rows) ? off + (row - b * win) : -1;
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  float* to = out + (static_cast<size_t>(b) * win + r0) * cols;
-  for (int i = threadIdx.x; i < WIN_ROWS_PER_CTA * cols; i += THREADS)
-    to[i] = stage[i] * 2.0f;
+  float4* to = out + static_cast<size_t>(r0) * cols4;
+  const int n_vec = n_rows * cols4;
+  for (int i = threadIdx.x; i < n_vec; i += THREADS) {
+    const int s = s_src[i / cols4];
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (s >= 0) {
+      v = __ldg(src + static_cast<size_t>(s) * cols4 + i % cols4);
+      v.x *= 2.0f;
+      v.y *= 2.0f;
+      v.z *= 2.0f;
+      v.w *= 2.0f;
+    }
+    to[i] = v;
+  }
 }
 
 // block (32, 8), grid (cdiv(cols, 32), cdiv(rows, 32)): out [cols, rows]
@@ -214,6 +227,11 @@ probe_vmem_dyn_kernel(const int* __restrict__ offs,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// rows of cols4 16-byte vectors that one CTA of dyn_write / dyn_read owns
+int rows_per_cta(int cols4) {
+  return cols4 >= VEC_PER_CTA ? 1 : VEC_PER_CTA / cols4;
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,25 +259,30 @@ int probe_onehot(const float* seg, const float* cmat, float* out, int n_seg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// win is a multiple of WIN_ROWS_PER_CTA; cols of 4 (16-byte rows)
+// win >= 1; cols a multiple of 4 (16-byte rows), src and out 16-byte
+// aligned; (n_win + rows_per_cta) * 4 B of shared memory within 48 KB
 int probe_dyn_write(const int* offs, float* out, int n_win, int win,
                     int rows, int cols, void* stream) {
-  if (n_win > 0) {
-    probe_dyn_write_kernel<<<dim3(n_win, win / WIN_ROWS_PER_CTA), THREADS,
-                             WIN_ROWS_PER_CTA * cols * sizeof(float),
+  const int cols4 = cols / 4;
+  if (rows > 0 && cols4 > 0) {
+    const int per = rows_per_cta(cols4);
+    probe_dyn_write_kernel<<<cdiv(rows, per), THREADS,
+                             (n_win + per) * sizeof(int),
                              static_cast<cudaStream_t>(stream)>>>(
-        offs, out, n_win, win, rows, cols);
+        offs, reinterpret_cast<float4*>(out), n_win, win, rows, cols4, per);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int probe_dyn_read(const int* offs, const float* src, float* out, int n_win,
                    int win, int rows, int cols, void* stream) {
-  if (n_win > 0) {
-    probe_dyn_read_kernel<<<dim3(n_win, win / WIN_ROWS_PER_CTA), THREADS,
-                            WIN_ROWS_PER_CTA * cols * sizeof(float),
+  const int cols4 = cols / 4;
+  if (n_win > 0 && win > 0 && cols4 > 0) {
+    const int per = rows_per_cta(cols4);
+    probe_dyn_read_kernel<<<cdiv(n_win * win, per), THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        offs, src, out, win, rows, cols);
+        offs, reinterpret_cast<const float4*>(src),
+        reinterpret_cast<float4*>(out), n_win, win, rows, cols4, per);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.projection import (
     ALPHA_CLAMP, ALPHA_THRESHOLD, SIGMA_GUARD_EPS, TRANSMITTANCE_EPS)
 from edgegaussians_tpu_torch.ops.raster_v2 import _row_chunks
@@ -118,15 +119,16 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _launch(name, argtypes, args):
-    from edgegaussians_tpu_torch.ops import _build
     _build.launch("lab_chunked", name, argtypes, args)
     launch_counts[name] += 1
 
 
 # feats, basis, t_in, img, t_out; rows, K, chunk; stream
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
 # feats, basis, g, t_in, prior, total, dfeats; rows, K; stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 2 + (
+    ctypes.c_void_p,)
 
 
 def chunked_fwd(feats: torch.Tensor, basis: torch.Tensor,
@@ -145,7 +147,7 @@ def chunked_fwd(feats: torch.Tensor, basis: torch.Tensor,
                          f"slots: chunk {chunk} must be a multiple")
     img = torch.empty((T, PIXELS), dtype=torch.float32, device=feats.device)
     t_out = torch.empty_like(img)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch(f"lab_fwd_{scan}", _FWD_ARGTYPES,
             (feats.data_ptr(), basis.data_ptr(), _ptr(t_in), img.data_ptr(),
              t_out.data_ptr(), T, K, chunk, stream))
@@ -167,7 +169,7 @@ def chunked_bwd(feats: torch.Tensor, basis: torch.Tensor, g: torch.Tensor,
     T, K = _check_inputs(feats, basis, g=g, t_in=t_in, prior=prior,
                          total=total)
     dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("lab_bwd_v3", _BWD_ARGTYPES,
             (feats.data_ptr(), basis.data_ptr(), g.data_ptr(), _ptr(t_in),
              _ptr(prior), total.data_ptr(), dfeats.data_ptr(), T, K, stream))

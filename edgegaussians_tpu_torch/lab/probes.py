@@ -11,9 +11,11 @@ segmented compositor wanted; here each is that construct's Hopper form
 - :func:`probe_dyn_write`: window b of ``win`` rows at row ``offs[b]``
   of a ``[rows, cols]`` array gets ``(b + 1) + row``; the rest is zero
   here (undefined in the script, whose oracle reads the windows only)
-  (:92);
+  (:92). The kernel computes it owner-first: each output row takes the
+  last fitting window that covers it, or 0, in one launch;
 - :func:`probe_dyn_read`: ``2 * src[offs[b] : offs[b] + win]`` for each
-  window, stacked (:128);
+  window, stacked, zero where a window does not fit (:128); one launch
+  writes every element;
 - :func:`probe_transpose`: a transpose (:163);
 - :func:`probe_vmem_dyn`: a scratch buffer ``[buf_rows, cols]`` kept
   across the steps: step s reads (``rmw`` False: ``buf * 0 + 2 * x[s]``)
@@ -27,7 +29,10 @@ in-order grid.
 
 Each probe has a plain PyTorch version (``*_ref``), which the wrapper
 takes for CPU tensors; CUDA tensors launch the kernel or raise, and each
-launch adds one to ``launch_counts``. :data:`CASES` holds the script's
+launch adds one to ``launch_counts``. The wrappers allocate their results
+with ``torch.empty``, as each kernel writes every element of its result,
+but for vmem_dyn's, whose kernel skips a step whose window does not fit
+(its result is zeroed first). :data:`CASES` holds the script's
 eight runs (its inputs and NumPy oracles, copied) and :func:`run_case`
 runs one through the kernel or the plain version.
 """
@@ -40,15 +45,28 @@ from typing import Callable, Dict, NamedTuple
 import numpy as np
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.segpair import check_tensor
 
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/lab_probes.cu"
 PROBES = ("roll", "onehot", "dyn_write", "dyn_read", "transpose",
           "vmem_dyn")
-WIN_ROWS_PER_CTA = 16     # csrc/lab_probes.cu: rows of a window per CTA
 SLAB = 128                # csrc/lab_probes.cu: vmem_dyn columns per CTA
 SMEM_PER_BLOCK = 232448   # bytes of shared memory a Hopper block may use
-SMEM_STATIC = 48 * 1024   # without cudaFuncSetAttribute
+# dyn_write keeps the offsets in shared memory, beside its rows' values,
+# within the 48 KB a block has without cudaFuncSetAttribute
+MAX_WINDOWS = 8192
+
+# each entry's pointers, then its ints, then the stream
+_V, _I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {
+    "probe_roll": (_V,) * 2 + (_I,) * 4 + (_V,),
+    "probe_onehot": (_V,) * 3 + (_I,) * 2 + (_V,),
+    "probe_dyn_write": (_V,) * 2 + (_I,) * 4 + (_V,),
+    "probe_dyn_read": (_V,) * 3 + (_I,) * 4 + (_V,),
+    "probe_transpose": (_V,) * 2 + (_I,) * 2 + (_V,),
+    "probe_vmem_dyn": (_V,) * 3 + (_I,) * 5 + (_V,),
+}
 
 # Launches of each kernel since the last reset_launch_counts(); only the
 # kernel wrappers below add to these.
@@ -67,14 +85,9 @@ def _on_cuda(x: torch.Tensor, what: str) -> bool:
     return x.device.type == "cuda"
 
 
-def _launch(name, argtypes, args):
-    from edgegaussians_tpu_torch.ops import _build
-    _build.launch("lab_probes", name, argtypes, args)
+def _launch(name, args):
+    _build.launch("lab_probes", name, ARGTYPES[name], args)
     launch_counts[name] += 1
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _check_offs(offs, device):
@@ -90,12 +103,10 @@ def _check_2d(name, x):
 
 
 def _check_windows(win, cols):
-    if win % WIN_ROWS_PER_CTA or cols % 4 or \
-            WIN_ROWS_PER_CTA * cols * 4 > SMEM_STATIC:
+    if win < 1 or cols % 4:
         raise ValueError(f"windows of {win} rows x {cols} columns: the "
-                         f"kernel takes multiples of {WIN_ROWS_PER_CTA} "
-                         f"rows and of 4 columns, up to "
-                         f"{SMEM_STATIC // (4 * WIN_ROWS_PER_CTA)} columns")
+                         f"kernels take windows of at least 1 row and "
+                         f"16-byte rows (a multiple of 4 columns)")
 
 
 def _fits(off: int, win: int, rows: int) -> bool:
@@ -113,10 +124,9 @@ def probe_roll(x: torch.Tensor, shift: int = 2, axis: int = 0
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     out = torch.empty_like(x)
-    _launch("probe_roll", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p],
+    _launch("probe_roll",
             (x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], shift,
-             axis, _stream(x)))
+             axis, _build.stream(x.device)))
     return out
 
 
@@ -139,10 +149,9 @@ def probe_onehot(seg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"c: expected [{n_seg}, cols] on {seg.device}, "
                          f"got {tuple(c.shape)} on {c.device}")
     out = torch.empty_like(c)
-    _launch("probe_onehot", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p],
+    _launch("probe_onehot",
             (seg.data_ptr(), c.data_ptr(), out.data_ptr(), n_seg,
-             c.shape[1], _stream(c)))
+             c.shape[1], _build.stream(c.device)))
     return out
 
 
@@ -159,16 +168,19 @@ def probe_dyn_write(offs: torch.Tensor, rows: int, cols: int,
                     win: int = 128) -> torch.Tensor:
     """A zero [rows, cols] f32 array whose window b, rows [offs[b],
     offs[b] + win), holds ``(b + 1) + row``; offs int32 on the device of
-    the result."""
+    the result. A window that does not fit is skipped; where two overlap,
+    the later one wins."""
     if not _on_cuda(offs, "dyn_write"):
         return probe_dyn_write_ref(offs, rows, cols, win)
     _check_offs(offs, offs.device)
     _check_windows(win, cols)
-    out = torch.zeros((rows, cols), dtype=torch.float32, device=offs.device)
-    _launch("probe_dyn_write", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p],
+    if offs.shape[0] > MAX_WINDOWS:
+        raise ValueError(f"the kernel takes up to {MAX_WINDOWS} windows, "
+                         f"got {offs.shape[0]}")
+    out = torch.empty((rows, cols), dtype=torch.float32, device=offs.device)
+    _launch("probe_dyn_write",
             (offs.data_ptr(), out.data_ptr(), offs.shape[0], win, rows, cols,
-             _stream(offs)))
+             _build.stream(offs.device)))
     return out
 
 
@@ -193,12 +205,14 @@ def probe_dyn_read(src: torch.Tensor, offs: torch.Tensor,
     _check_offs(offs, src.device)
     rows, cols = src.shape
     _check_windows(win, cols)
-    out = torch.zeros((offs.shape[0] * win, cols), dtype=torch.float32,
+    if src.data_ptr() % 16:
+        raise ValueError("src: the kernel reads 16-byte vectors, so its "
+                         "data must start on a 16-byte boundary")
+    out = torch.empty((offs.shape[0] * win, cols), dtype=torch.float32,
                       device=src.device)
-    _launch("probe_dyn_read", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p],
+    _launch("probe_dyn_read",
             (offs.data_ptr(), src.data_ptr(), out.data_ptr(), offs.shape[0],
-             win, rows, cols, _stream(src)))
+             win, rows, cols, _build.stream(src.device)))
     return out
 
 
@@ -220,10 +234,9 @@ def probe_transpose(x: torch.Tensor) -> torch.Tensor:
     _check_2d("x", x)
     out = torch.empty((x.shape[1], x.shape[0]), dtype=torch.float32,
                       device=x.device)
-    _launch("probe_transpose", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p],
+    _launch("probe_transpose",
             (x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-             _stream(x)))
+             _build.stream(x.device)))
     return out
 
 
@@ -256,10 +269,9 @@ def probe_vmem_dyn(offs: torch.Tensor, x: torch.Tensor, buf_rows: int,
                          f"multiple of {SLAB} and buf_rows at most "
                          f"{SMEM_PER_BLOCK // (4 * SLAB)}")
     out = torch.zeros_like(x)
-    _launch("probe_vmem_dyn", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p],
+    _launch("probe_vmem_dyn",
             (offs.data_ptr(), x.data_ptr(), out.data_ptr(), steps, win,
-             cols, buf_rows, int(rmw), _stream(x)))
+             cols, buf_rows, int(rmw), _build.stream(x.device)))
     return out
 
 

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.segpair import check_tensor
 
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/knn.cu"
@@ -47,6 +48,10 @@ _REF_CHUNK = 1024
 # Launches of the kernel since the last reset_launch_counts(); only the
 # kernel wrapper below adds to it.
 launch_counts = {"knn": 0}
+
+# points, mask; n, k; dists, idx, stream
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def reset_launch_counts() -> None:
@@ -72,12 +77,9 @@ def knn(points: torch.Tensor, k: int,
         check_tensor("mask", mask, torch.bool, (n,), points.device)
     dists = torch.empty((n, k), dtype=torch.float32, device=points.device)
     idx = torch.empty((n, k), dtype=torch.int64, device=points.device)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
-    from edgegaussians_tpu_torch.ops import _build
+    stream = _build.stream(points.device)
     _build.launch(
-        "knn", "knn_topk",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        "knn", "knn_topk", _ARGTYPES,
         (points.data_ptr(), None if mask is None else mask.data_ptr(), n, k,
          dists.data_ptr(), idx.data_ptr(), stream))
     launch_counts["knn"] += 1

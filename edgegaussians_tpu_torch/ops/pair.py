@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.projection import ALPHA_CLAMP
 from edgegaussians_tpu_torch.ops.segpair import (
     PIXELS, build_pair_features, check_tensor, pair_grads_to_packed,
@@ -86,10 +87,15 @@ def _check_inputs(feats, sfp, counts, basis, **planes):
     return R
 
 
+# each entry's pointers, then rows and stream
+_ARGTYPES = {
+    "pair_fwd": (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_void_p),
+    "pair_bwd": (ctypes.c_void_p,) * 7 + (ctypes.c_int, ctypes.c_void_p),
+}
+
+
 def _launch(name, args):
-    from edgegaussians_tpu_torch.ops import _build
-    _build.launch("pair", name, [ctypes.c_void_p] * (len(args) - 2)
-                  + [ctypes.c_int, ctypes.c_void_p], args)
+    _build.launch("pair", name, _ARGTYPES[name], args)
     launch_counts[name] += 1
 
 
@@ -108,7 +114,7 @@ def pair_fwd(feats: torch.Tensor, sfp: torch.Tensor, counts: torch.Tensor,
         return pair_fwd_ref(feats, sfp, counts, basis)
     R = _check_inputs(feats, sfp, counts, basis)
     img = torch.empty((R, PIXELS), dtype=torch.float32, device=feats.device)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("pair_fwd", (feats.data_ptr(), sfp.data_ptr(), counts.data_ptr(),
                          basis.data_ptr(), img.data_ptr(), R, stream))
     return img
@@ -125,7 +131,7 @@ def pair_bwd(feats: torch.Tensor, sfp: torch.Tensor, counts: torch.Tensor,
         return pair_bwd_ref(feats, sfp, counts, basis, g, total)
     R = _check_inputs(feats, sfp, counts, basis, g=g, total=total)
     dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("pair_bwd", (feats.data_ptr(), sfp.data_ptr(), counts.data_ptr(),
                          basis.data_ptr(), g.data_ptr(), total.data_ptr(),
                          dfeats.data_ptr(), R, stream))

@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.projection import (
     ALPHA_CLAMP, ALPHA_THRESHOLD, SIGMA_GUARD_EPS, TRANSMITTANCE_EPS)
 from edgegaussians_tpu_torch.ops.raster_v2 import _row_chunks
@@ -64,8 +65,15 @@ def _check_inputs(feats, basis, **planes):
     return T, K
 
 
+# feats, basis, img; T, K; stream
+_FWD_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2 + (
+    ctypes.c_void_p,)
+# feats, basis, g, total, dfeats; T, K; stream
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 2 + (
+    ctypes.c_void_p,)
+
+
 def _launch(name, argtypes, args):
-    from edgegaussians_tpu_torch.ops import _build
     _build.launch("raster_v1", name, argtypes, args)
     launch_counts[name] += 1
 
@@ -84,9 +92,8 @@ def composite_fwd(feats: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
         return composite_fwd_ref(feats, basis)
     T, K = _check_inputs(feats, basis)
     img = torch.empty((T, PIXELS), dtype=torch.float32, device=feats.device)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    _launch("raster_v1_fwd",
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    stream = _build.stream(feats.device)
+    _launch("raster_v1_fwd", _FWD_ARGTYPES,
             (feats.data_ptr(), basis.data_ptr(), img.data_ptr(), T, K,
              stream))
     return img
@@ -101,9 +108,8 @@ def composite_bwd(feats: torch.Tensor, basis: torch.Tensor, g: torch.Tensor,
         return composite_bwd_ref(feats, basis, g, total)
     T, K = _check_inputs(feats, basis, g=g, total=total)
     dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    _launch("raster_v1_bwd",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    stream = _build.stream(feats.device)
+    _launch("raster_v1_bwd", _BWD_ARGTYPES,
             (feats.data_ptr(), basis.data_ptr(), g.data_ptr(),
              total.data_ptr(), dfeats.data_ptr(), T, K, stream))
     return dfeats

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.projection import (
     ALPHA_CLAMP, ALPHA_THRESHOLD, SIGMA_GUARD_EPS, TRANSMITTANCE_EPS)
 from edgegaussians_tpu_torch.ops.segpair import PIXELS, check_tensor
@@ -75,12 +76,11 @@ def _check_inputs(feats, counts, basis, **rows):
 
 
 # feats, counts, basis, three [T,256] planes; rows, K; stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p)
 
 
 def _launch(name, args):
-    from edgegaussians_tpu_torch.ops import _build
     _build.launch("raster_v2", name, _ARGTYPES, args)
     launch_counts[name] += 1
 
@@ -108,7 +108,7 @@ def composite_fwd_seg(feats: torch.Tensor, counts: torch.Tensor,
     T, K = _check_inputs(feats, counts, basis, t_in=t_in)
     img = torch.empty((T, PIXELS), dtype=torch.float32, device=feats.device)
     t_out = torch.empty_like(img)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("raster_v2_fwd",
             (feats.data_ptr(), counts.data_ptr(), basis.data_ptr(),
              _ptr(t_in), img.data_ptr(), t_out.data_ptr(), T, K, stream))
@@ -129,7 +129,7 @@ def composite_bwd_seg(feats: torch.Tensor, counts: torch.Tensor,
     gt2 = (g * (1.0 - total)).contiguous()
     T, K = _check_inputs(feats, counts, basis, gt2=gt2, t_in=t_in)
     dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("raster_v2_bwd",
             (feats.data_ptr(), counts.data_ptr(), basis.data_ptr(),
              gt2.data_ptr(), _ptr(t_in), dfeats.data_ptr(), T, K, stream))

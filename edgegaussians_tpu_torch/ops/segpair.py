@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.projection import (
     ALPHA_CLAMP, ALPHA_THRESHOLD, SIGMA_GUARD_EPS, TRANSMITTANCE_EPS)
 from edgegaussians_tpu_torch.ops.tiles import PairBins
@@ -109,10 +110,15 @@ def _check_inputs(feats, s_f, basis, device, gt=None):
     return T
 
 
+# each entry's pointers, then rows and stream
+_ARGTYPES = {
+    "segpair_fwd": (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_void_p),
+    "segpair_bwd": (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_void_p),
+}
+
+
 def _launch(name, *args):
-    from edgegaussians_tpu_torch.ops import _build
-    _build.launch("segpair", name, [ctypes.c_void_p] * (len(args) - 2)
-                  + [ctypes.c_int, ctypes.c_void_p], args)
+    _build.launch("segpair", name, _ARGTYPES[name], args)
     launch_counts[name] += 1
 
 
@@ -127,7 +133,7 @@ def segpair_fwd(feats: torch.Tensor, s_f: torch.Tensor,
         raise ValueError(f"no segpair kernel for device {feats.device}")
     T = _check_inputs(feats, s_f, basis, feats.device)
     img = torch.empty((T, PIXELS), dtype=torch.float32, device=feats.device)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("segpair_fwd", feats.data_ptr(), s_f.data_ptr(),
             basis.data_ptr(), img.data_ptr(), T, stream)
     return img
@@ -145,7 +151,7 @@ def segpair_bwd(feats: torch.Tensor, s_f: torch.Tensor, basis: torch.Tensor,
         raise ValueError(f"no segpair kernel for device {feats.device}")
     T = _check_inputs(feats, s_f, basis, feats.device, gt)
     dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    stream = _build.stream(feats.device)
     _launch("segpair_bwd", feats.data_ptr(), s_f.data_ptr(),
             basis.data_ptr(), gt.data_ptr(), dfeats.data_ptr(), T, stream)
     return dfeats

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.segpair import check_tensor
 
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/shard_sum.cu"
@@ -33,6 +34,9 @@ COLS = 128
 # Launches of the kernel since the last reset_launch_counts(); only the
 # kernel wrapper below adds to it.
 launch_counts = {"shard_sum": 0}
+
+# x; rows; out, stream
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def reset_launch_counts() -> None:
@@ -51,11 +55,8 @@ def shard_sum2x(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x: expected [rows, {COLS}], got {tuple(x.shape)}")
     check_tensor("x", x, torch.float32, x.shape, x.device)
     out = torch.empty((1, COLS), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    from edgegaussians_tpu_torch.ops import _build
-    _build.launch("shard_sum", "shard_sum2x",
-                  [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p],
+    stream = _build.stream(x.device)
+    _build.launch("shard_sum", "shard_sum2x", _ARGTYPES,
                   (x.data_ptr(), x.shape[0], out.data_ptr(), stream))
     launch_counts["shard_sum"] += 1
     return out

@@ -33,7 +33,9 @@ The lab's chunked-scan kernels: image atol 1e-5 and t_out rtol 1e-5 where
 >= 1e-4 (5e-5 for the log-space ``logsum`` form, whose sums run in another
 order than the plain cumsum), dfeats 1e-4 of the plain version's max-abs;
 the probes exactly equal to their plain versions and oracles (the one-hot
-sum within 1e-5).
+sum within 1e-5); the one-launch dyn_write / dyn_read kernels exactly
+equal on random windows and over poisoned allocations, one device kernel
+per call.
 """
 
 import numpy as np
@@ -800,3 +802,116 @@ def test_lab_probe_windows_overlap_and_out_of_range(device):
     roffs = torch.tensor([0, 400], dtype=torch.int32, device=device)
     torch.testing.assert_close(probes.probe_dyn_read(src, roffs),
                                probes.probe_dyn_read_ref(src, roffs))
+
+
+# -- the one-launch dyn_write / dyn_read kernels -----------------------------
+
+def _random_windows(rng):
+    """rows, cols, win and 0-8 int32 offsets: about 60% inside the array
+    where a window fits at all, the rest mostly out of range; columns past
+    2048 give the kernels CTAs of one row (tests/test_torch_build.py's
+    draws, with wider rows)."""
+    rows = int(rng.integers(1, 300))
+    win = int(rng.choice([1, 5, 8, 16, 40, 128, 300]))
+    n_win = int(rng.integers(0, 9))
+    offs = rng.integers(-win - 8, rows + 8, n_win)
+    if rows >= win:
+        inside = rng.integers(0, rows - win + 1, n_win)
+        offs = np.where(rng.random(n_win) < 0.6, inside, offs)
+    cols = int(rng.choice([4, 8, 12, 256, 2052]))
+    return rows, cols, win, offs.astype(np.int32)
+
+
+def _window_call(probe, device, offs, rows=512, cols=256, win=128, seed=0):
+    """(kernel call, plain call, result shape) of one window probe."""
+    offs = torch.as_tensor(offs, dtype=torch.int32, device=device)
+    if probe == "dyn_write":
+        return (lambda: probes.probe_dyn_write(offs, rows, cols, win),
+                lambda: probes.probe_dyn_write_ref(offs, rows, cols, win),
+                (rows, cols))
+    src = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(rows, cols)).astype(np.float32)).to(device)
+    return (lambda: probes.probe_dyn_read(src, offs, win),
+            lambda: probes.probe_dyn_read_ref(src, offs, win),
+            (offs.shape[0] * win, cols))
+
+
+@pytest.mark.parametrize("poison", ["freed_block", "nan_empty"])
+@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+def test_lab_window_probes_write_every_element(device, monkeypatch, probe,
+                                               poison):
+    """The wrappers allocate with torch.empty, so a kernel that skips an
+    element leaves whatever the memory held. Poisoned allocations: a freed
+    block of NaNs of the result's size (the caching allocator hands such a
+    block back when nothing fits better), or torch.empty itself returning
+    NaNs. Every element outside the windows must still come out 0."""
+    kern, plain, shape = _window_call(probe, device, [40, 200, 300, -3, 450])
+    if poison == "freed_block":
+        torch.cuda.empty_cache()
+        block = torch.full(shape, float("nan"), device=device)
+        del block
+    else:
+        empty = torch.empty
+        monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(
+            *a, **k).fill_(float("nan")))
+    out = kern()
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    ref = plain()
+    assert torch.equal(out, ref)
+    assert (out[ref == 0] == 0).all() and (ref == 0).any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+def test_lab_window_probes_on_random_windows(device, probe, seed):
+    """Random, overlapping and out-of-range windows: kernel and plain
+    version exactly equal."""
+    rng = np.random.default_rng(300 + seed)
+    for i in range(25):
+        rows, cols, win, offs = _random_windows(rng)
+        kern, plain, _ = _window_call(probe, device, offs, rows, cols, win,
+                                      seed=i)
+        got = kern()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain()), (rows, cols, win, offs)
+
+
+@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+def test_lab_window_probes_launch_one_kernel_per_call(device, probe):
+    """torch.profiler sees one device kernel per call, the probe's, and
+    no fill or copy; each call adds one to the launch count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kern, _, _ = _window_call(probe, device, [40, 200])
+    kern()
+    torch.cuda.synchronize()
+    key = f"probe_{probe}"
+    before = probes.launch_counts[key]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kern()
+        torch.cuda.synchronize()
+    assert probes.launch_counts[key] == before + 10
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 10, on_device
+    assert all(f"{key}_kernel" in name for name in on_device), on_device
+
+
+def test_lab_window_probes_check_inputs(device):
+    offs = torch.tensor([0], dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        probes.probe_dyn_write(offs, 64, 6, 16)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        probes.probe_dyn_read(torch.zeros((64, 8), device=device), offs, 0)
+    with pytest.raises(ValueError, match="windows"):
+        probes.probe_dyn_write(
+            torch.zeros(probes.MAX_WINDOWS + 1, dtype=torch.int32,
+                        device=device), 64, 8, 16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        probes.probe_dyn_read(torch.zeros(64 * 8 + 1, device=device)[1:]
+                              .view(64, 8), offs, 16)
+    with pytest.raises(TypeError):
+        probes.probe_dyn_write(offs.long(), 64, 8, 16)
