@@ -15,12 +15,22 @@ Phases, in order; any failure exits non-zero:
    cameras at the recipe's two-level settings (k1 128, k2 640, t2 128,
    occupancy sort, pair budget 0), both levels, level 2 fed level 1's
    t_out. Both print errors and fwd/bwd times (CUDA events, median of 5
-   blocks) per camera beside each kernel's bound.
-   2 (knn): the kNN kernel against its plain version at the recipe's
-   capacity: the fixture's 12740 means as live rows padded with dead
-   rows to 16384, k = 6 (the ABC fetch), 11 and 15, plus a mask with 4
-   live rows for the dry slots; times of the kernel, the plain version
-   and a cdist + topk yardstick beside the bound.
+   blocks) per camera beside each kernel's bound. Then the seg
+   backward's chain, timed: frames whose runs are all of one length, of
+   faint pairs that every pixel walks to the end, queued behind a
+   sleeping kernel so the events time the device alone: one CTA on each
+   camera's longest run (its own pairs, and faint pairs of that length)
+   and on 64 and 768 faint pairs (the time a pair adds, forward too), and
+   768-pair runs at 1, 2 and 4 CTAs an SM.
+   2 (knn): the kNN kernel against its plain version, bit for bit, at the
+   recipe's capacity: the fixture's 12740 means as live rows padded with
+   dead rows to 16384, k = 6 (the ABC fetch), 11 and 15, plus a mask with
+   4 live rows for the dry slots; times of the kernel, the plain version
+   and a cdist + topk yardstick beside the bound and the instruction
+   floor. Then at the DTU / Replica capacity: 131072 rows uniform in the
+   unit box from a seed, every other row live, k = 6, bit-equal to the
+   plain version on 2048 seeded query rows, timed beside its bound and
+   cdist + topk over chunks of 8192 query rows.
    2 (pair): the v4 block-window pair kernels against their plain versions
    on the same cameras at the recipe's cap 768 and budget 49152, binned
    with block_tiles 8 (brick-alignment pads present), forward and
@@ -76,7 +86,7 @@ Phases, in order; any failure exits non-zero:
    log's last digit) of a single-process run of the same config in this
    call; then ``--mesh_gauss 1`` on one NCCL rank. The shard-sum kernel
    is also timed on one [16384, 128] shard beside its plain version and
-   ``torch.sum``.
+   ``torch.sum`` (their device times come in phase 8).
 
 8. The kernel lab (``edgegaussians_tpu_torch/lab/``) at the JAX labs'
    size: 20000 random Gaussians at 800x800, the two-level frame at k1
@@ -90,12 +100,14 @@ Phases, in order; any failure exits non-zero:
    its plain version on level 1 and on level 2 fed level 1's t_out, and
    each probe kernel against its plain version and the script's oracle,
    with times beside the bound and, where one PyTorch call computes the
-   same function, that call's (and each probe's device time from
-   torch.profiler). Last, the host cost of a dyn_write and a dyn_read
-   call split into its parts (argument checks, allocation, stream lookup,
-   the ctypes call with its launch, the whole wrapper), each beside the
-   form it replaced, and the device activities per call from the
-   profiler, which must be one kernel.
+   same function, that call's (and the device times of each probe and
+   of its library call from torch.profiler). Last, the host cost of a
+   dyn_write and a dyn_read call split into its parts (argument checks,
+   allocation, stream lookup, the ctypes call with its launch, the whole
+   wrapper), each beside the form it replaced, and the device activities
+   per call from the profiler, which must be one kernel; and the
+   shard-sum kernel's and torch.sum's device times. Every torch.profiler
+   window of the run is in phase 8, after the in-process training runs.
 
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
@@ -160,7 +172,20 @@ OTHER_PATHS = {
 }
 KNN_CAPACITY = 16384        # the ABC recipe's max_num_gaussians
 KNN_KS = (6, 11, 15)        # ABC direction fetch, Replica's, wayward cull
-KNN_RTOL = 1e-6             # kernel vs plain distances (bit-equal by design)
+# the DTU / Replica capacity: a cloud uniform in the unit box, every other
+# row live, k = 6 (their direction-loss fetch); the plain version on a
+# seeded sample of query rows; cdist + topk over chunks of query rows
+KNN_BIG, KNN_BIG_K, KNN_BIG_SAMPLE, KNN_BIG_CHUNK = 131072, 6, 2048, 8192
+# the seg kernels' chain, timed on runs of broad pairs of alpha
+# SEG_CHAIN_ALPHA that every pixel walks to the end (0.995^768 > 1e-4):
+# one CTA at the shorter and longer length gives the time a pair adds;
+# the longer at 1, 2 and 4 CTAs an SM shows whether CTAs sharing an SM
+# slow each other. Queued behind a kernel that sleeps QUEUE_SLEEP_CYCLES
+# (~20 ms), so the host's ~20 us a launch hides.
+SEG_CHAIN_PAIRS = (64, 768)
+SEG_CHAIN_ALPHA = 0.005
+SEG_CHAIN_CTAS_PER_SM = (1, 2, 4)
+QUEUE_SLEEP_CYCLES = 40_000_000
 ORIENT_EPOCHS = 6
 ORIENT_CUTS = dict(start_ratio_loss_at_epoch=0, start_dir_loss_at_epoch=1)
 WAYWARD_EPOCH = 3
@@ -170,8 +195,9 @@ FULL_VIEWS = 50
 # transmittance products (sequential vs cumprod scan) differ
 IMG_ATOL = 1e-5
 # dfeats / dpacked / absgrad, relative to the plain version's max-abs: the
-# per-slot sums over 256 pixels are a shuffle tree vs a matmul, and the
-# rows reach [N,8] through index_add_ atomics, whose order varies by run
+# per-slot sums over 256 pixels are 3xTF32 tensor-core products (seg) or
+# a shuffle tree (the other compositors) vs an f32 matmul, and the rows
+# reach [N,8] through index_add_ atomics, whose order varies by run
 GRAD_RTOL_OF_MAX = 1e-4
 # the H100 SXM's published peaks from NVIDIA's data sheet: HBM bytes/s
 # and f32 FLOP/s outside the tensor cores; the special-function units
@@ -191,6 +217,11 @@ V1_FWD_OPS = (16, 3)
 V1_BWD_OPS = (29, 4)
 # per (query, live key) of the kNN: 3 subs, 3 muls, 2 adds, the dead-key add
 KNN_OPS = (9, 0)
+# the kNN's instruction floor: those operations cannot contract into FMAs,
+# so with the compare each pair issues ~10 lane-instructions, at 132 SMs x
+# 128 lanes x 1.98 GHz (the H100 SXM's top SM clock)
+KNN_LANE_INSTR = 10
+LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 # phase 7: 4 bands of cdiv(50, 4) = 13 tile rows; view batches of 5;
 # the multi-rank runs' cuts (ratio loss fires from epoch 1, a
 # duplication of the top 5% by absgrad after epoch 1)
@@ -358,6 +389,110 @@ def time_kernels(calls, n_cases: int, bounds):
     return ms
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls queued behind a
+    sleeping kernel, so that they run back to back whatever the host's
+    launch cost (median of 5 blocks). Raises if the host took longer to
+    queue them than the sleep lasted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        slept, start, stop = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        torch.cuda.synchronize()
+        if host_ms >= slept.elapsed_time(start):
+            raise RuntimeError(f"queued_ms: queuing took {host_ms:.3f} ms, "
+                               f"longer than the sleep")
+        times.append(start.elapsed_time(stop) / reps)
+    return float(np.median(times))
+
+
+def chain_case(n_tiles: int, pairs: int, device):
+    """(feats, s_f, gt) of ``n_tiles`` frame rows, each one run of
+    ``pairs`` broad pairs of alpha ~SEG_CHAIN_ALPHA on every pixel, so
+    that no pixel stops early."""
+    from edgegaussians_tpu_torch.ops import segpair
+    b = n_tiles * pairs
+    src = torch.zeros((b, 8), device=device)
+    src[:, 0] = src[:, 2] = 1e-6
+    src[:, 3:5] = 7.5
+    src[:, 5] = math.log(SEG_CHAIN_ALPHA)
+    zero = torch.zeros(b, device=device)
+    feats = segpair.build_pair_features(src, zero, zero).contiguous()
+    s_f = torch.arange(0, b + 1, pairs, dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    gt = torch.rand((n_tiles, 256), generator=gen, device=device)
+    return feats, s_f, gt
+
+
+def phase_seg_chain(device, cases, basis, fixture_ms: float) -> None:
+    """The seg kernels' chain timed, one CTA alone: the backward on each
+    camera's longest run (its own pairs) and on faint runs of the
+    fixture's longest lengths and of SEG_CHAIN_PAIRS, the forward on the
+    latter; then the backward's longer faint runs at SEG_CHAIN_CTAS_PER_SM
+    CTAs an SM."""
+    from edgegaussians_tpu_torch.ops import segpair
+    lo, hi = SEG_CHAIN_PAIRS
+    runs = [int(cs["pbins"].counts_f.max()) for cs in cases]
+    with torch.no_grad():
+        feats, s_f, gt = chain_case(1, hi, device)
+        rel_err(segpair.segpair_bwd(feats, s_f, basis, gt),
+                segpair.segpair_bwd_ref(feats, s_f, basis, gt),
+                f"chain run of {hi} pairs: dfeats")
+
+        def timed(kernel: str, n_tiles: int, pairs: int) -> float:
+            feats, s_f, gt = chain_case(n_tiles, pairs, device)
+            if kernel == "fwd":
+                return queued_ms(
+                    lambda: segpair.segpair_fwd(feats, s_f, basis), 20)
+            return queued_ms(
+                lambda: segpair.segpair_bwd(feats, s_f, basis, gt), 20)
+
+        own = []
+        for cs in cases:
+            fr = int(cs["pbins"].counts_f.argmax())
+            a, b = (int(x) for x in cs["s_f"][fr:fr + 2])
+            feats = cs["feats"][a:b].contiguous()
+            s_f = torch.tensor([0, b - a], dtype=torch.int32, device=device)
+            gt = cs["gt"][fr:fr + 1].contiguous()
+            own.append(queued_ms(
+                lambda: segpair.segpair_bwd(feats, s_f, basis, gt), 20))
+        alone = {p: timed("bwd", 1, p) for p in sorted({lo, hi, *runs})}
+        fwd = {p: timed("fwd", 1, p) for p in (lo, hi)}
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        shared = {c: timed("bwd", c * sms, hi) for c in SEG_CHAIN_CTAS_PER_SM}
+    sm_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"]).splitlines()[0])
+
+    def per_pair(t: dict) -> str:
+        ns = (t[hi] - t[lo]) / (hi - lo) * 1e6
+        return f"a pair adds {ns:.1f} ns, {ns * sm_mhz * 1e-3:.0f} cycles " \
+               f"at {sm_mhz:.0f} MHz"
+
+    log("segpair_bwd one CTA alone on a faint run: "
+        + ", ".join(f"{p} pairs {t:.4f} ms" for p, t in alone.items())
+        + f"; {per_pair(alone)}")
+    log("segpair_fwd one CTA alone on a faint run: "
+        + ", ".join(f"{p} pairs {t:.4f} ms" for p, t in fwd.items())
+        + f"; {per_pair(fwd)}")
+    log(f"segpair_bwd faint runs of {hi} pairs on {sms} SMs: "
+        + ", ".join(f"{c} CTA(s) an SM {t:.4f} ms ({t / shared[1]:.2f}x)"
+                    for c, t in shared.items()))
+    log(f"segpair_bwd {fixture_ms:.4f} ms per camera beside one CTA alone "
+        f"on each camera's longest run {runs}: its own pairs "
+        + ", ".join(f"{t:.4f}" for t in own) + " ms; faint pairs "
+        + ", ".join(f"{alone[r]:.4f}" for r in runs) + " ms")
+
+
 def phase_kernels(device):
     from edgegaussians_tpu_torch.ops import segpair
     log("== phase 2: seg kernels vs plain versions, fixture at 800x800")
@@ -388,11 +523,13 @@ def phase_kernels(device):
         err["segpair_fwd"] = max(err["segpair_fwd"], e_img)
         err["segpair_bwd"] = max(err["segpair_bwd"], e_dfe)
         rel = [rel_err(a, b, f"camera {c}: {name}")
-               for name, a, b in zip(("dpacked", "absgrad"), out_k, out_r)]
+               for name, a, b in zip(("dfeats", "dpacked", "absgrad"),
+                                     (dfe_k, *out_k), (dfe_r, *out_r))]
         log(f"camera {c}: pairs={int(pb.num_pairs)}/49152 "
             f"kept={int(pb.s_f[-1])} max_run={int(pb.counts_f.max())} "
             f"img_err={e_img:.3g} dfeats_err={e_dfe:.3g} "
-            f"dpacked_rel={rel[0]:.3g} absgrad_rel={rel[1]:.3g}")
+            f"dfeats_rel={rel[0]:.3g} dpacked_rel={rel[1]:.3g} "
+            f"absgrad_rel={rel[2]:.3g}")
         check_image(e_img, f"camera {c}")
 
     def over_cases(fn):
@@ -417,7 +554,9 @@ def phase_kernels(device):
               "segpair_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
     log(f"per camera: {per_cam[2]:.0f} pair-pixel evaluations, "
         f"{per_cam[0] / 1e6:.2f} MB (fwd) / {per_cam[1] / 1e6:.2f} MB (bwd)")
-    return err, time_kernels(calls, len(cases), bounds), bounds
+    ms = time_kernels(calls, len(cases), bounds)
+    phase_seg_chain(device, cases, basis, ms["segpair_bwd"][0])
+    return err, ms, bounds
 
 
 def dense_cases(device):
@@ -796,34 +935,88 @@ def knn_inputs(device):
             torch.from_numpy(mask).to(device), n_live)
 
 
-def check_knn(d_k, i_k, d_r, i_r, mask, what: str) -> float:
-    """Kernel against plain: distances within KNN_RTOL relative, indices
-    equal except where the two candidates' d^2 differ by at most
-    KNN_RTOL relative; no self, no dead neighbour on wet slots; dry slots
-    float32 max with index 0 on both sides. Returns the max abs error of
-    the wet distances."""
+def check_knn(d_k, i_k, d_r, i_r, mask, what: str, rows=None) -> float:
+    """Kernel against plain, bit for bit (both round every product and
+    sum of d^2 alike and share the tie rule): equal distances and indices;
+    no self, no dead neighbour on wet slots; dry slots float32 max with
+    index 0. ``rows``: the query rows the answers belong to (default: all,
+    in order). Returns the distances' max abs error, 0."""
     from edgegaussians_tpu_torch.ops import knn as knn_mod
+    if not (torch.equal(d_k, d_r) and torch.equal(i_k, i_r)):
+        raise AssertionError(
+            f"{what}: {int((d_k != d_r).sum())} distances and "
+            f"{int((i_k != i_r).sum())} indices differ from the plain "
+            "version")
     dry = d_r == knn_mod.F32_MAX
-    if not torch.equal(dry, d_k == knn_mod.F32_MAX) or \
-            not bool((i_k[dry] == 0).all()) or \
-            not bool((i_r[dry] == 0).all()):
-        raise AssertionError(f"{what}: dry slots disagree")
+    if not bool((i_r[dry] == 0).all()):
+        raise AssertionError(f"{what}: a dry slot with an index")
     wet = ~dry
-    err = (d_k[wet] - d_r[wet]).abs()
-    if bool((err > KNN_RTOL * d_r[wet].abs()).any()):
-        raise AssertionError(f"{what}: distances differ by "
-                             f"{err.max().item():.3g}")
-    neq = (i_k != i_r) & wet
-    if bool(neq.any()):
-        d2k, d2r = d_k[neq] ** 2, d_r[neq] ** 2
-        if bool(((d2k - d2r).abs() > KNN_RTOL * d2r).any()):
-            raise AssertionError(f"{what}: {int(neq.sum())} indices differ "
-                                 "beyond a near-tie")
-    rows = torch.arange(i_k.shape[0], device=i_k.device)[:, None]
-    if bool((i_k[wet] == rows.expand_as(i_k)[wet]).any()) or \
+    if rows is None:
+        rows = torch.arange(i_k.shape[0], device=i_k.device)
+    if bool((i_k[wet] == rows[:, None].expand_as(i_k)[wet]).any()) or \
             not bool(mask[i_k[wet]].all()):
         raise AssertionError(f"{what}: a self or dead neighbour")
-    return float(err.max()) if bool(wet.any()) else 0.0
+    return 0.0
+
+
+def knn_cloud(device, n: int, seed: int = 8):
+    """``n`` points uniform in the unit box from ``seed``, every other row
+    live (a staged capacity half full)."""
+    r = np.random.default_rng(seed)
+    pts = r.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    mask = np.zeros(n, bool)
+    mask[::2] = True
+    return torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
+
+
+def knn_floor_ms(pairs: float) -> float:
+    """The instruction floor of ``pairs`` (query, live key) pairs: the 9
+    uncontracted operations and the compare, one lane-instruction each,
+    over the H100's 132 SMs x 128 lanes at 1.98 GHz."""
+    return pairs * KNN_LANE_INSTR / LANE_INSTR_PER_S * 1e3
+
+
+def phase_knn_big(device):
+    """Phase 2 (knn) at the DTU / Replica capacity: the kernel on
+    :func:`knn_cloud`, bit-equal to the plain version on KNN_BIG_SAMPLE
+    seeded query rows, timed beside its bound, its instruction floor and
+    cdist + topk over chunks of KNN_BIG_CHUNK query rows."""
+    from edgegaussians_tpu_torch.ops import knn as knn_mod
+    pts, mask = knn_cloud(device, KNN_BIG)
+    n, k = pts.shape[0], KNN_BIG_K
+    n_live = int(mask.sum())
+    log(f"== phase 2 (knn, {n} rows): {n_live} live rows uniform in the "
+        f"unit box, k={k}")
+    rows = torch.from_numpy(np.sort(np.random.default_rng(9).choice(
+        n, KNN_BIG_SAMPLE, replace=False))).to(device)
+    inf = torch.tensor(float("inf"), device=device)
+
+    def library():
+        # the yardstick: cdist, the masks and topk per chunk of rows
+        for r0 in range(0, n, KNN_BIG_CHUNK):
+            r1 = min(r0 + KNN_BIG_CHUNK, n)
+            d = torch.where(mask[None, :], torch.cdist(pts[r0:r1], pts), inf)
+            q = torch.arange(r1 - r0, device=device)
+            d[q, r0 + q] = inf
+            torch.topk(d, k, dim=1, largest=False)
+
+    with torch.no_grad():
+        d_k, i_k = knn_mod.knn(pts, k, mask)
+        torch.cuda.synchronize()
+        ref = [knn_mod.knn_ref_rows(pts, k, mask, rows[c:c + 512])
+               for c in range(0, KNN_BIG_SAMPLE, 512)]
+        err = check_knn(d_k[rows], i_k[rows], torch.cat([r[0] for r in ref]),
+                        torch.cat([r[1] for r in ref]), mask,
+                        f"{n} rows, {KNN_BIG_SAMPLE} sampled", rows)
+        ms = (cuda_ms(lambda: knn_mod.knn(pts, k, mask), 3),
+              cuda_ms(library, 1))
+    bound = bound_ms(n * 12 + n + n * k * 12, n * n_live, KNN_OPS)
+    log(f"knn {n} rows k={k}: {KNN_BIG_SAMPLE} sampled query rows bit-equal "
+        f"to plain; kernel {ms[0]:.4f} ms, cdist+topk in chunks of "
+        f"{KNN_BIG_CHUNK} rows {ms[1]:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]}; {n * n_live} query-key pairs), instruction floor "
+        f"{knn_floor_ms(n * n_live):.4f} ms")
+    return err, ms, bound
 
 
 def phase_knn_kernel(device):
@@ -844,8 +1037,8 @@ def phase_knn_kernel(device):
                 raise AssertionError(f"k={k}: dry slots with {n_live} live "
                                      "rows")
             err = max(err, e)
-            log(f"k={k}: max_abs_err {e:.3g}, indices equal "
-                f"{bool(torch.equal(i_k, i_r))}, dead rows answered")
+            log(f"k={k}: bit-equal to plain (distances and indices), dead "
+                "rows answered")
         few = torch.zeros_like(mask)
         few[[0, 5000, 9000, 12000]] = True
         d_k, i_k = knn_mod.knn(pts, 6, few)
@@ -876,7 +1069,9 @@ def phase_knn_kernel(device):
     bound = bound_ms(nbytes, n * n_live, KNN_OPS)
     log(f"knn k={k}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
         f"cdist+topk {ms[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
-        f"{n * n_live} query-key pairs)")
+        f"{n * n_live} query-key pairs), instruction floor "
+        f"{knn_floor_ms(n * n_live):.4f} ms")
+    err = max(err, phase_knn_big(device)[0])
     return err, ms, bound
 
 
@@ -1380,6 +1575,21 @@ def phase_shard_sum_kernel(device):
     return err, ms, bound
 
 
+def shard_sum_device(device) -> None:
+    """The device times of the shard-sum kernel and of torch.sum on
+    phase 7's shard, from torch.profiler (run in phase 8, where every
+    profiler window of the run is: see profiled_device)."""
+    from edgegaussians_tpu_torch.ops import shard_sum
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.rand((SHARD_ROWS, 128), generator=gen, device=device)
+    with torch.no_grad():
+        kern = profiled_device(lambda: shard_sum.shard_sum2x(x), "shard_sum")
+        lib = profiled_device(lambda: torch.sum(x, 0, keepdim=True), "")
+    log(f"shard_sum device time: kernel {kern[0]:.4f} ms ({kern[1]:.2f} "
+        f"activities per call), torch.sum {lib[0]:.4f} ms ({lib[1]:.2f}), "
+        "profiler")
+
+
 def phase_view_batch(tmp: str, scan: str):
     """Phase 7b: view batches in one process through the CLI."""
     epochs, batches = EPOCHS, VIEWS // VIEW_BATCH
@@ -1732,10 +1942,14 @@ def probe_bytes(probe: str, t, out) -> int:
 
 def profiled_device(fn, kernel_name: str, calls: int = 50):
     """(device ms per call of the kernels whose name holds
-    ``kernel_name``, device activities per call: kernels, fills and
-    copies of any name), from torch.profiler over ``calls`` calls: at the
-    probes' sizes a call's CUDA-event time is its host dispatch. (0.0,
-    0.0) if the profiler saw no device activity."""
+    ``kernel_name`` ("" for every activity of the call), device activities
+    per call: kernels, fills and copies of any name), from torch.profiler
+    over ``calls`` calls: at the probes' sizes a call's CUDA-event time is
+    its host dispatch. (0.0, 0.0) if the profiler saw no device activity.
+
+    Each window must come after the in-process training phases: on the
+    H100 machine, once a window had run before them, every window after
+    them lost device records (39-43 of 50 probe kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1750,6 +1964,55 @@ def profiled_device(fn, kernel_name: str, calls: int = 50):
     us = sum(e.self_device_time_total for e in device
              if kernel_name in e.key)
     return us / calls / 1e3, sum(e.count for e in device) / calls
+
+
+def device_records(fn, kernel_name: str, calls: int) -> tuple:
+    """(records of kernels whose name holds ``kernel_name``, records of
+    any other device activity: kernels, fills, copies) in one
+    torch.profiler window over ``calls`` calls of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    named = other = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if kernel_name in e.key:
+                named += e.count
+            else:
+                other += e.count
+    return named, other
+
+
+def one_kernel_per_call(fn, kernel_name: str, calls: int = 50,
+                        windows: int = 3) -> tuple:
+    """Device activities per call of ``fn`` and the (named, other) record
+    counts of each window read; raises unless a window holds exactly one
+    record of ``kernel_name`` per call and no other record. Any other
+    activity (a fill, a copy) or more than one kernel a call raises at
+    once. A window short of records and holding nothing else is read
+    again, up to ``windows`` windows: CUPTI drops device records now and
+    then (49 of 50 kernels in one window on the H100 machine), and a
+    dropped record cannot be told from a call that launched nothing."""
+    seen = []
+    for _ in range(windows):
+        named, other = device_records(fn, kernel_name, calls)
+        seen.append((named, other))
+        if other or named > calls:
+            raise AssertionError(
+                f"{kernel_name}: {named} kernel and {other} other device "
+                f"records over {calls} calls, expected one kernel a call")
+        if named == calls:
+            return named / calls, seen
+    raise AssertionError(
+        f"{kernel_name}: short of one kernel record a call in each of "
+        f"{windows} profiler windows of {calls} calls (named, other): "
+        f"{seen}")
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -1829,7 +2092,7 @@ def probe_host_split(device) -> dict:
                 per_call_prototypes),
             "wrapper": host_us(c["call"]),
         }
-        _, per_call = profiled_device(c["call"], name)
+        per_call, windows = one_kernel_per_call(c["call"], name)
         us["device_activities_per_call"] = per_call
         split[p] = us
         log(f"{name} host us per call ({HOST_CALLS} calls each): checks "
@@ -1840,10 +2103,7 @@ def probe_host_split(device) -> dict:
             f"{us['ctypes_launch']:.3f} (prototypes set per call "
             f"{us['ctypes_launch_per_call_prototypes']:.3f}), whole wrapper "
             f"{us['wrapper']:.3f}; device activities per call "
-            f"{per_call:.2f} (profiler)")
-        if per_call != 1.0:
-            raise AssertionError(f"{name}: {per_call} device activities per "
-                                 "call, expected one kernel")
+            f"{per_call:.2f} (profiler; records per window {windows})")
     return split
 
 
@@ -1854,7 +2114,7 @@ def phase_lab_probes(device):
     profiler."""
     from edgegaussians_tpu_torch.lab import probes
     err, ms, bounds = {}, {}, {}
-    per = {p: [0.0, 0.0, 0.0, 0.0, True, 0.0] for p in probes.PROBES}
+    per = {p: [0.0, 0.0, 0.0, 0.0, True, 0.0, 0.0] for p in probes.PROBES}
     for name, case in probes.CASES.items():
         out_k, e_k, tol = probes.run_case(name, device)
         out_r, e_r, _ = probes.run_case(name, device, plain=True)
@@ -1875,22 +2135,27 @@ def phase_lab_probes(device):
             acc[4] = False
         else:
             acc[2] += cuda_ms(lib, 200)
+            # every device activity of the call, whatever its kernels' names
+            acc[6] += profiled_device(lib, "")[0]
         acc[3] += probe_bytes(case.probe, t, out_k)
         acc[5] += profiled_device(lambda: case.call(kern, t),
                                   f"probe_{case.probe}_kernel")[0]
         log(f"{name}: oracle error kernel {e_k:.3g} plain {e_r:.3g}, kernel "
             f"vs plain {(out_k - out_r).abs().max().item():.3g}")
-    for p, (k_ms, p_ms, l_ms, nbytes, has_lib, dev_ms) in per.items():
+    for p, (k_ms, p_ms, l_ms, nbytes, has_lib, dev_ms, l_dev) in \
+            per.items():
         key = f"probe_{p}"
         ms[key] = (k_ms, p_ms, l_ms if has_lib else None)
         bounds[key] = bound_ms(nbytes, 0, (0, 0))
         log(f"{key}: kernel {k_ms:.4f} ms (device "
             + (f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured")
             + f", profiler), plain {p_ms:.4f} ms, library "
-            + (f"{l_ms:.4f} ms" if has_lib else "none")
+            + (f"{l_ms:.4f} ms (device {l_dev:.4f} ms, profiler)"
+               if has_lib else "none")
             + f", bound {bounds[key][0]:.5f} ms ({bounds[key][1]}; "
             f"{nbytes / 1e6:.3f} MB)")
     probe_host_split(device)
+    shard_sum_device(device)
     return err, ms, bounds
 
 

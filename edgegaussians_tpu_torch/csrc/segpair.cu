@@ -23,22 +23,61 @@
 // What bounds it on this card: neither bytes nor FLOPs. At the ABC shapes
 // (~33k kept pairs of an 800x800 view) a view is ~8.4M pair-pixel
 // evaluations (~0.3 GFLOP) over ~1 MB of features and 2.5 MB of image --
-// microseconds at the H100's 3.35 TB/s and 67 TFLOP/s f32. The time goes
-// to the serial transmittance chain along each run (a tile's pairs are a
-// dependent sequence per pixel, up to the 768-pair cap) and to the uneven
-// run lengths across tiles; the backward adds a 6-value warp reduction per
-// pair.
+// microseconds at the H100's 3.35 TB/s and 67 TFLOP/s f32. What sets the
+// time instead:
 //
-// What the design does about it: one CTA per frame row, one thread per
-// pixel, so every run is walked by exactly one CTA and needs no cross-CTA
-// carry or atomics. Pairs are staged in shared memory in batches (one
-// coalesced load per batch, broadcast reads after). A pixel stops once its
-// transmittance falls below 1e-4, which is exact because t only falls, and
-// the CTA stops when all its pixels have (__syncthreads_and). The backward
-// skips a pair's shuffle reduction when its whole warp holds zeros, and
-// each pair's gradient row belongs to one CTA, so the result is a plain
-// deterministic store. Splitting long runs across CTAs with a
-// transmittance hand-off is left to later work.
+// 1. The run of the CTA with the longest run. A tile's pairs are a
+//    dependent sequence per pixel, and one CTA walks each run, so the
+//    time one CTA alone takes on the longest run is a floor for the
+//    launch. chip_smoke.py phase 2 times it: on an H100 80GB HBM3 (700 W)
+//    a backward CTA alone adds ~160 ns (~320 cycles) a pair where every
+//    pixel walks every pair, ~0.12 ms at the 768-pair cap; on the ABC
+//    fixture's longest runs (187-346 pairs) 0.03-0.06 ms, about the
+//    whole launch's time. Runs are uneven across tiles.
+// 2. What a CTA does per pair, in its 8 warps: ~25 instructions per pixel
+//    on the alpha and transmittance math (an expf, and in the backward a
+//    division), the barriers of each batch, and the latency between them.
+//    It is the CTA's latency more than the SM's issue rate: two CTAs
+//    sharing an SM take ~1.3x one CTA's time, not 2x (same phase).
+// 3. In the backward, the reduction dfeats[p, j] = sum_px dla[p, px] *
+//    basis[j, px] over a tile's 256 pixels, a [pairs x 256] @ [256 x 8]
+//    product per batch of pairs. Done as a warp shuffle butterfly (5 levels
+//    x 6 values) it cost a CTA ~500 warp instructions per pair against ~120
+//    on the pixel math.
+//
+// What the design does about them. Both kernels: one CTA per frame row, one
+// thread per pixel, so every run is walked by exactly one CTA and needs no
+// cross-CTA carry or atomics. Pairs are staged in shared memory in batches
+// (coalesced loads, broadcast reads). A pixel stops once its transmittance
+// falls below 1e-4, which is exact because t only falls, and the CTA stops
+// when all its pixels have (__syncthreads_and). Splitting long runs across
+// CTAs with a transmittance hand-off (1) is left to later work.
+//
+// The backward does the reduction (3) on the tensor cores. Each warp owns
+// 32 pixels, i.e. 4 k-steps of the product. Its pixels write their dla for
+// 16 pairs into the warp's own tile D [16 x 32] (row stride 36, so the
+// fragment loads hit 32 distinct banks), one store per pair per thread;
+// after a __syncwarp the warp multiplies D by the basis columns of its
+// pixels with mma.sync m16n8k8 in TF32, in the 3xTF32 split (a = a_hi +
+// a_lo: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, f32 accumulators), which keeps
+// f32 accuracy where plain TF32 (10-bit mantissa) would not. The basis
+// fragments (B, fixed for every tile) are split once into registers; the
+// monomial basis of tiles.pixel_basis is exact in TF32, so its b_lo is zero
+// and the middle product is skipped then (adding exact zeros changes no
+// bit). A warp whose 16 pairs are all zero skips its products. Each warp
+// leaves a [batch x 6] partial in shared memory, and after the batch's
+// barrier the 8 partials are added in warp order: deterministic, no
+// atomics. Per pair, the reduction now costs a CTA ~8 stores plus ~40
+// warp instructions of fragment loads, splits and MMAs.
+//
+// Against (1) and (2), the backward computes what does not depend on t
+// (the guard, alpha, 1 - alpha and dla) for the 16 pairs of a tile side
+// by side, and walks only a multiply and a compare per pair along the
+// chain; it divides with __fdividef (MUFU reciprocal and a multiply,
+// within 2 ulp for 1 - alpha in [0.001, 1)) where IEEE division costs a
+// CTA ~20 instructions a pair; empty runs return at once. Batches are double
+// buffered: the next batch's features arrive by cp.async (16 bytes a
+// thread where feats is 16-byte aligned) while this batch computes.
 
 #include <cuda_runtime.h>
 
@@ -48,7 +87,11 @@ constexpr int P = 256;           // pixels of a 16x16 tile = threads per CTA
 constexpr int NF = 8;            // features per pair
 constexpr int WARPS = P / 32;
 constexpr int FWD_BATCH = 256;   // pairs staged per pass (8 KB)
-constexpr int BWD_BATCH = 128;   // pairs staged per pass (4 KB + 24 KB)
+constexpr int BWD_BATCH = 64;    // pairs staged per pass (2 x 2 KB)
+constexpr int MT = 16;           // pairs per MMA tile: the m of m16n8k8
+constexpr int KSTEPS = 4;        // a warp's 32 pixels: 4 k-steps of 8
+constexpr int DSTRIDE = 36;      // row of a warp's D tile: 32 pixels + 4
+constexpr int NJ = 6;            // gradient columns the reduction makes
 constexpr float ALPHA_THRESHOLD = 1.0f / 255.0f;
 constexpr float ALPHA_CLAMP = 0.999f;
 constexpr float TRANSMITTANCE_EPS = 1e-4f;
@@ -105,71 +148,163 @@ segpair_fwd_kernel(const float* __restrict__ feats,
   img[static_cast<size_t>(fr) * P + px] = acc;
 }
 
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a @ b for one m16n8k8 tile: a [16 x 8] row-major, b [8 x 8]
+// column-major, in TF32 with f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Start copying `count` floats (a multiple of 4) from global to shared
+// memory without waiting: 16 bytes a thread where both are 16-byte
+// aligned, else 4 bytes.
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            int count, bool vec16) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec16) {
+    for (int i = 4 * threadIdx.x; i < count; i += 4 * P)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(d + 4 * i), "l"(src + i));
+  } else {
+    for (int i = threadIdx.x; i < count; i += P)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(d + 4 * i), "l"(src + i));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 __global__ void __launch_bounds__(P)
 segpair_bwd_kernel(const float* __restrict__ feats,
                    const int* __restrict__ s_f,
                    const float* __restrict__ basis,
                    const float* __restrict__ gt,
                    float* __restrict__ dfeats) {
-  __shared__ float sf[BWD_BATCH * NF];
-  __shared__ float part[BWD_BATCH][WARPS][6];
+  __shared__ __align__(16) float sf[2][BWD_BATCH * NF];
+  __shared__ __align__(16) float dt[WARPS][MT * DSTRIDE];
+  __shared__ __align__(16) float part[WARPS][BWD_BATCH * NJ];
   const int fr = blockIdx.x;
   const int px = threadIdx.x;
   const int lane = px & 31;
   const int warp = px >> 5;
+  const int grp = lane >> 2;   // the fragments' row (A) and column (B)
+  const int tig = lane & 3;    // the fragments' column (A) and row (B)
   const int s = s_f[fr];
   const int e = s_f[fr + 1];
+  if (s >= e) return;   // an empty run has no rows to write
   float b[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
   const float g = gt[static_cast<size_t>(fr) * P + px];
 
+  // B fragments of this warp's pixels, B[k][n] = basis[n][32 warp + k],
+  // zero for n = 6, 7, each split as b_hi + b_lo
+  unsigned bhi[KSTEPS][2], blo[KSTEPS][2];
+  bool b_exact = true;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = grp < NJ
+          ? basis[grp * P + 32 * warp + 8 * ks + tig + 4 * h] : 0.0f;
+      bhi[ks][h] = to_tf32(v);
+      blo[ks][h] = to_tf32(v - __uint_as_float(bhi[ks][h]));
+      b_exact &= blo[ks][h] == 0u;
+    }
+  }
+  b_exact = __all_sync(FULL_MASK, b_exact);
+  float* dw = dt[warp];
+  const bool vec16 = (reinterpret_cast<size_t>(feats) & 15) == 0;
+
   float t = 1.0f;
   bool done = false;       // this pixel's transmittance fell below 1e-4
   bool all_done = false;   // every pixel of the tile has: rows are zero
-  for (int base = s; base < e; base += BWD_BATCH) {
+  int buf = 0;
+  stage_async(sf[0], feats + static_cast<size_t>(s) * NF,
+              min(BWD_BATCH, e - s) * NF, vec16);
+  for (int base = s; base < e; base += BWD_BATCH, buf ^= 1) {
     const int n = min(BWD_BATCH, e - base);
-    if (!all_done) {
-      for (int i = px; i < n * NF; i += P)
-        sf[i] = feats[static_cast<size_t>(base) * NF + i];
-    }
+    const int next = base + BWD_BATCH;
+    // the next batch lands in the other buffer while this one computes;
+    // an empty group keeps the wait below uniform
+    if (!all_done && next < e)
+      stage_async(sf[buf ^ 1], feats + static_cast<size_t>(next) * NF,
+                  min(BWD_BATCH, e - next) * NF, vec16);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
     if (!all_done) {
-      for (int k = 0; k < n; ++k) {
-        float dla = 0.0f;
-        if (!done) {
-          const float* f = sf + k * NF;
-          const float la = log_alpha(f, b);
-          if (la <= f[6] + SIGMA_GUARD_EPS) {
+      const float* fb = sf[buf];
+      for (int m0 = 0; m0 < n; m0 += MT) {
+        bool any = false;
+        if (!__all_sync(FULL_MASK, done)) {   // else zero rows, no products
+          // what does not depend on t, for the 16 pairs side by side: the
+          // guard and threshold, 1 - alpha, and dla if the pair is kept
+          float om[MT], q[MT];
+          bool ok[MT];
+#pragma unroll
+          for (int r = 0; r < MT; ++r) {
+            const float* f = fb + (m0 + r) * NF;
+            const float la = log_alpha(f, b);
             float a = expf(la);
-            if (a >= ALPHA_THRESHOLD) {
-              a = fminf(a, ALPHA_CLAMP);
-              const float om = 1.0f - a;
-              const float t_inc = t * om;
+            ok[r] = m0 + r < n && la <= f[6] + SIGMA_GUARD_EPS &&
+                    a >= ALPHA_THRESHOLD;
+            a = fminf(a, ALPHA_CLAMP);
+            om[r] = 1.0f - a;
+            q[r] = a < ALPHA_CLAMP ? a * __fdividef(g, om[r]) : 0.0f;
+          }
+          // the serial chain: a multiply and a compare per pair
+#pragma unroll
+          for (int r = 0; r < MT; ++r) {
+            float dla = 0.0f;
+            if (ok[r] && !done) {
+              const float t_inc = t * om[r];
               if (t_inc < TRANSMITTANCE_EPS) {
                 done = true;
               } else {
-                if (a < ALPHA_CLAMP) dla = a * (g / om);
+                dla = q[r];
                 t = t_inc;
               }
             }
+            dw[r * DSTRIDE + lane] = dla;
+            any |= dla != 0.0f;
           }
         }
-        // every lane joins the reduction, exited pixels with zeros
-        float v[6];
+        __syncwarp();
+        // this warp's partial of the 16 pairs: D [16 x 32] @ B [32 x 8]
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (__any_sync(FULL_MASK, any)) {
 #pragma unroll
-        for (int j = 0; j < 6; ++j) v[j] = dla * b[j];
-        if (__any_sync(FULL_MASK, dla != 0.0f)) {
+          for (int ks = 0; ks < KSTEPS; ++ks) {
+            const float* d0 = dw + grp * DSTRIDE + 8 * ks + tig;
+            const float av[4] = {d0[0], d0[8 * DSTRIDE], d0[4],
+                                 d0[8 * DSTRIDE + 4]};
+            unsigned hi[4], lo[4];
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-            for (int j = 0; j < 6; ++j)
-              v[j] += __shfl_xor_sync(FULL_MASK, v[j], off);
+            for (int i = 0; i < 4; ++i) {
+              hi[i] = to_tf32(av[i]);
+              lo[i] = to_tf32(av[i] - __uint_as_float(hi[i]));
+            }
+            mma_tf32(c, lo, bhi[ks][0], bhi[ks][1]);
+            if (!b_exact) mma_tf32(c, hi, blo[ks][0], blo[ks][1]);
+            mma_tf32(c, hi, bhi[ks][0], bhi[ks][1]);
           }
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < 6; ++j) part[k][warp][j] = v[j];
+        __syncwarp();   // D is read before the next 16 pairs overwrite it
+        if (tig < NJ / 2) {   // columns 2 tig, 2 tig + 1 of rows grp, grp + 8
+          float* pw = part[warp] + (m0 + grp) * NJ + 2 * tig;
+          *reinterpret_cast<float2*>(pw) = make_float2(c[0], c[1]);
+          *reinterpret_cast<float2*>(pw + 8 * NJ) = make_float2(c[2], c[3]);
         }
       }
     }
@@ -178,15 +313,17 @@ segpair_bwd_kernel(const float* __restrict__ feats,
       const int k = i / NF;
       const int j = i % NF;
       float sum = 0.0f;
-      if (!all_done && j < 6) {
+      if (!all_done && j < NJ) {
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) sum += part[k][w][j];
+        for (int w = 0; w < WARPS; ++w) sum += part[w][k * NJ + j];
       }
       dfeats[static_cast<size_t>(base) * NF + i] = sum;
     }
-    // also the barrier before the next batch overwrites sf and part
+    // also the barrier before the next batch's prefetch overwrites this
+    // batch's buffer and the warps overwrite part
     all_done = __syncthreads_and(done);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace

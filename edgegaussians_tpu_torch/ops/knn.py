@@ -89,29 +89,43 @@ def knn(points: torch.Tensor, k: int,
 def knn_ref(points: torch.Tensor, k: int,
             mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`knn`: per chunk of query rows, the
-    [chunk, N] d^2 by direct differences, dead keys and the row itself at
-    +inf, then a stable sort, whose tie rule is the kernel's."""
+    """Plain PyTorch version of :func:`knn`: :func:`knn_ref_rows` over
+    chunks of query rows."""
+    n = points.shape[0]
+    dev = points.device
+    dists = torch.full((n, k), F32_MAX, dtype=torch.float32, device=dev)
+    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    for r0 in range(0, n, _REF_CHUNK):
+        r1 = min(r0 + _REF_CHUNK, n)
+        dists[r0:r1], idx[r0:r1] = knn_ref_rows(
+            points, k, mask, torch.arange(r0, r1, device=dev))
+    return dists, idx
+
+
+def knn_ref_rows(points: torch.Tensor, k: int, mask: Optional[torch.Tensor],
+                 rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn_ref`'s answer for the query rows ``rows`` [R] (int64)
+    against every key: the [R, N] d^2 by direct differences, dead keys and
+    the row itself at +inf, then a stable sort, whose tie rule is the
+    kernel's -> (dists [R,k], idx [R,k])."""
     pts = torch.nan_to_num(points.to(torch.float32))
     n = pts.shape[0]
     dev = pts.device
-    dists = torch.full((n, k), F32_MAX, dtype=torch.float32, device=dev)
-    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    r = rows.shape[0]
+    dists = torch.full((r, k), F32_MAX, dtype=torch.float32, device=dev)
+    idx = torch.zeros((r, k), dtype=torch.int64, device=dev)
     kk = min(k, n)
-    dead = None if mask is None else ~mask.to(device=dev, dtype=torch.bool)
     inf = torch.tensor(float("inf"), device=dev)
-    for r0 in range(0, n, _REF_CHUNK):
-        r1 = min(r0 + _REF_CHUNK, n)
-        diff = pts[r0:r1, None, :] - pts[None, :, :]              # [C,N,3]
-        sq = diff * diff
-        d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]               # [C,N]
-        if dead is not None:
-            d2 = torch.where(dead[None, :], inf, d2)
-        rows = torch.arange(r1 - r0, device=dev)
-        d2[rows, r0 + rows] = inf
-        s, order = torch.sort(d2, dim=1, stable=True)
-        s, order = s[:, :kk], order[:, :kk]
-        dry = torch.isinf(s)
-        dists[r0:r1, :kk] = torch.where(dry, F32_MAX, torch.sqrt(s))
-        idx[r0:r1, :kk] = torch.where(dry, 0, order)
+    diff = pts[rows, None, :] - pts[None, :, :]                   # [R,N,3]
+    sq = diff * diff
+    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]                   # [R,N]
+    if mask is not None:
+        dead = ~mask.to(device=dev, dtype=torch.bool)
+        d2 = torch.where(dead[None, :], inf, d2)
+    d2[torch.arange(r, device=dev), rows] = inf
+    s, order = torch.sort(d2, dim=1, stable=True)
+    s, order = s[:, :kk], order[:, :kk]
+    dry = torch.isinf(s)
+    dists[:, :kk] = torch.where(dry, F32_MAX, torch.sqrt(s))
+    idx[:, :kk] = torch.where(dry, 0, order)
     return dists, idx

@@ -12,14 +12,17 @@ without the JAX-side conftest:
 Tolerances: image atol 1e-5 (both sides take the same f32 steps; only
 the order of the log-alpha sum and of the transmittance products
 differs); per-pair and per-slot dfeats 1e-5 of the plain version's
-max-abs (warp shuffle tree vs matmul reduction over 256 pixels); the
+max-abs (the seg backward sums its 256 pixels as 3xTF32 tensor-core
+products and 8 warp partials, a dense kernel as a warp shuffle tree, the
+plain versions as an f32 matmul); the
 dense kernels' t_out where the plain value is >= 1e-4 rtol 1e-5, and
 below 1e-4 on both sides elsewhere (its value there depends on the
 implementation, ops/raster_v2.py); whole-rasterizer gradients atol 3e-4,
 rtol 2e-3 (tests/test_pallas_segpair.py's seg tolerances; the pair rows
 reach [N,8] through index_add_ atomics). The kNN kernel and its plain
 version round every product and sum of d^2 alike and share the tie rule,
-so they agree exactly. The fired view step: parameters rtol 1e-4 and
+so they agree exactly, whatever the key slices and the live-key
+compaction of the kernel. The fired view step: parameters rtol 1e-4 and
 moments rtol 5e-3, both with atol 1e-6 of the group's max-abs
 (tests/test_torch_orientation.py's tolerances and projection weight).
 The v4 pair and v1 kernels: image atol 1e-5, dfeats 1e-4 of the plain
@@ -915,3 +918,138 @@ def test_lab_window_probes_check_inputs(device):
                               .view(64, 8), offs, 16)
     with pytest.raises(TypeError):
         probes.probe_dyn_write(offs.long(), 64, 8, 16)
+
+
+# -- the seg backward's batches and tensor-core reduction --------------------
+
+SEG_BATCH = 64      # pairs per staged batch of csrc/segpair.cu's backward
+SEG_RUNS = {
+    # around the MMA tile (16 pairs), the batch and the 768-pair cap
+    "lengths": [0, 1, 15, 16, 17, 31, 32, 33, SEG_BATCH - 1, SEG_BATCH,
+                SEG_BATCH + 1, 0, 768],
+    # one pixel saturates at pairs 40-42 of a 100-pair run
+    "pixel_saturates": [100, 7],
+    # every pixel saturates at pair 101 of 200: rows 102-199 are zero
+    "all_saturate": [200, 3],
+}
+
+
+def _seg_run_features(name, seed=0):
+    """(feats [B+5,8], s_f [T+1] int32) for SEG_RUNS[name]: broad, faint
+    Gaussians in tile-local coordinates, so that the 768-pair run keeps
+    most pixels alive; 5 rows past the last run belong to no run. In
+    'pixel_saturates' three narrow opaque pairs sit on pixel (3, 7); in
+    'all_saturate' pairs 100 and 101 have alpha 0.999 on every pixel."""
+    counts = SEG_RUNS[name]
+    r = np.random.default_rng(seed)
+    b = sum(counts) + 5
+    src = np.zeros((b, 8), np.float32)
+    src[:, 0] = r.uniform(0.004, 0.05, b)
+    src[:, 2] = r.uniform(0.004, 0.05, b)
+    src[:, 1] = r.uniform(-0.5, 0.5, b) * np.sqrt(src[:, 0] * src[:, 2])
+    src[:, 3:5] = r.uniform(-6.0, 22.0, (b, 2))
+    src[:, 5] = np.log(r.uniform(0.004, 0.03, b))
+    src[:, 6] = 1.0
+    if name == "pixel_saturates":
+        src[40:43, :6] = [2.0, 0.0, 2.0, 3.5, 7.5, np.log(0.995)]
+    if name == "all_saturate":
+        src[100:102, :6] = [0.0, 0.0, 0.0, 0.0, 0.0, np.log(0.9999)]
+    s_f = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    src = torch.from_numpy(src)
+    zero = torch.zeros(b)
+    return (segpair.build_pair_features(src, zero, zero).contiguous(),
+            torch.from_numpy(s_f))
+
+
+@pytest.mark.parametrize("poison", [None, "freed_block", "nan_empty"])
+@pytest.mark.parametrize("name", list(SEG_RUNS))
+def test_seg_bwd_kernel_on_run_lengths_and_saturation(device, monkeypatch,
+                                                      name, poison):
+    """The backward against its plain version: runs of every length
+    around the 16-pair MMA tile and the 64-pair batch, up to the cap; a
+    pixel done in the middle of a batch; every pixel done in the middle
+    of a batch (later rows zero); and allocations poisoned with NaNs (a
+    freed block of the result's size, or torch.empty_like filling NaNs),
+    so that a row of a run the kernel left unwritten shows."""
+    feats, s_f = (x.to(device) for x in _seg_run_features(name))
+    basis = tiles.pixel_basis(16, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    gt = torch.rand((s_f.shape[0] - 1, 256), generator=gen, device=device)
+    if poison == "freed_block":
+        torch.cuda.empty_cache()
+        block = torch.full(feats.shape, float("nan"), device=device)
+        del block
+    elif poison == "nan_empty":
+        empty_like = torch.empty_like
+        monkeypatch.setattr(torch, "empty_like", lambda *a, **k: empty_like(
+            *a, **k).fill_(float("nan")))
+    got = segpair.segpair_bwd(feats, s_f, basis, gt)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    ref = segpair.segpair_bwd_ref(feats, s_f, basis, gt)
+    kept = int(s_f[-1])
+    assert bool(torch.isfinite(got[:kept]).all())
+    scale = float(ref.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[:kept], ref[:kept], rtol=0,
+                               atol=1e-5 * scale)
+    assert bool((got[:kept, 6:] == 0).all())
+    img = segpair.segpair_fwd_ref(feats, s_f, basis)
+    if name == "pixel_saturates":
+        assert bool((ref[43:100] != 0).any())
+    if name == "all_saturate":
+        assert bool((got[102:200] == 0).all()) and bool((img[0] > 0.99).all())
+
+
+# -- the key-split, live-compacted kNN ---------------------------------------
+
+KNN_SLICES = 8      # contiguous key slices per CTA of csrc/knn.cu
+
+def _knn_case(case, n):
+    """(points [n,3], mask [n]) for one kNN case."""
+    r = np.random.default_rng(n)
+    pts = r.uniform(-1, 1, (n, 3)).astype(np.float32)
+    mask = np.ones(n, bool)
+    if case == "duplicates":        # copies in other key slices
+        src = r.choice(n, n // 3, replace=False)
+        pts[(src + n // 2) % n] = pts[src]
+        pts[n - 1] = pts[0]
+        pts[n // 8 + 1] = pts[1]
+        mask[::5] = False
+    elif case == "all_dead":
+        mask[:] = False
+    elif case == "one_live":
+        mask[:] = False
+        mask[n // 3] = True
+    elif case == "one_slice_live":
+        s = 3 * n // KNN_SLICES
+        mask[:] = False
+        mask[s:4 * n // KNN_SLICES] = True
+        pts[s + 2] = pts[s]          # a tie inside the slice
+    return pts, mask
+
+
+@pytest.mark.parametrize("k", [1, 6, 15, 16])
+@pytest.mark.parametrize("case,n", [
+    ("duplicates", 1000), ("duplicates", 16461), ("random", 5),
+    ("random", 4133), ("all_dead", 300), ("one_live", 300),
+    ("one_slice_live", 2051)])
+def test_knn_kernel_slices_and_compaction(device, case, n, k):
+    """Bit-equal to the plain version: duplicate points whose copies lie
+    in other key slices (the lower index wins), n not a multiple of the
+    slice count or of the 128-key tile (5 rows leave slices empty), every
+    key dead, one live key, live keys in one slice only."""
+    pts, mask = _knn_case(case, n)
+    p, m = torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
+    d_k, i_k = knn_mod.knn(p, k, mask=m)
+    torch.cuda.synchronize()
+    d_r, i_r = knn_mod.knn_ref(p, k, mask=m)
+    assert torch.equal(i_k, i_r)
+    assert torch.equal(d_k, d_r)
+    if case == "all_dead":
+        assert bool((d_k == knn_mod.F32_MAX).all()) and bool((i_k == 0).all())
+    if case == "one_live":
+        live = n // 3
+        others = torch.arange(n, device=device) != live
+        assert bool((i_k[others, 0] == live).all())
+        assert float(d_k[live, 0]) == knn_mod.F32_MAX

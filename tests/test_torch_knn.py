@@ -121,3 +121,72 @@ def test_cpu_tensors_take_the_plain_version():
     assert knn_mod.launch_counts["knn"] == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def _slice_merge_model(points, k, mask, slices):
+    """The kernel's rule in plain PyTorch: knn_ref's d^2 against each of
+    ``slices`` contiguous key slices, slice s = [s n // slices, (s + 1) n
+    // slices), each slice's k best by a stable sort, then the slices'
+    lists merged by (d^2, index)."""
+    p = torch.nan_to_num(points)
+    n = p.shape[0]
+    diff = p[:, None, :] - p[None, :, :]
+    sq = diff * diff
+    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    d2 = torch.where(mask[None, :], d2, torch.tensor(float("inf")))
+    d2.fill_diagonal_(float("inf"))
+    cand_d, cand_i = [], []
+    for s in range(slices):
+        lo = n * s // slices
+        hi = n * (s + 1) // slices
+        ds, order = torch.sort(d2[:, lo:hi], dim=1, stable=True)
+        cand_d.append(ds[:, :k])
+        cand_i.append(order[:, :k] + lo)
+    cd, ci = torch.cat(cand_d, 1), torch.cat(cand_i, 1)
+    # (d^2, index) lexicographically: by index, then stably by d^2
+    o = torch.argsort(ci, dim=1, stable=True)
+    cd, ci = cd.gather(1, o), ci.gather(1, o)
+    o = torch.argsort(cd, dim=1, stable=True)[:, :k]
+    cd, ci = cd.gather(1, o), ci.gather(1, o)
+    dists = torch.full((n, k), F32_MAX, dtype=torch.float32)
+    idx = torch.zeros((n, k), dtype=torch.int64)
+    dry = torch.isinf(cd)
+    dists[:, :cd.shape[1]] = torch.where(dry, F32_MAX, torch.sqrt(cd))
+    idx[:, :ci.shape[1]] = torch.where(dry, 0, ci)
+    return dists, idx
+
+
+@pytest.mark.parametrize("k", [1, 6, 16])
+@pytest.mark.parametrize("n,seed", [(1003, 0), (512, 1), (61, 2), (5, 3)])
+@pytest.mark.parametrize("slices", [3, 8])
+def test_slice_and_merge_rule_equals_knn_ref(n, seed, k, slices):
+    """Per-slice top-k lists merged by (d^2, index) give knn_ref's
+    answer bit for bit, for any slice count (csrc/knn.cu has 8):
+    duplicates whose copies lie in other slices (the lower index wins the
+    tie), dead keys, a NaN row, and n not a multiple of the slice count
+    (n = 5 leaves slices empty)."""
+    pts, mask = _cloud(n, seed, dead_every=7, nan_rows=(n // 3,))
+    r = np.random.default_rng(seed + 100)
+    src = r.choice(n, n // 4, replace=False)
+    pts[(src + n // 2) % n] = pts[src]              # copies across slices
+    pts[n - 1] = pts[0]                             # first and last slice
+    p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+    d_m, i_m = _slice_merge_model(p, k, m, slices)
+    d_r, i_r = knn_mod.knn_ref(p, k, mask=m)
+    assert torch.equal(i_m, i_r)
+    assert torch.equal(d_m, d_r)
+    if n > 5:
+        assert bool((d_r == 0).any())               # the ties are there
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_knn_ref_rows_is_knn_ref_on_those_rows(masked):
+    """The helper the chip smoke test holds a sample of query rows with
+    gives knn_ref's rows, in any order, repeats included."""
+    pts, mask = _cloud(700, seed=4, dead_every=3 if masked else 0)
+    p = torch.from_numpy(pts)
+    m = torch.from_numpy(mask) if masked else None
+    rows = torch.tensor([699, 0, 350, 350, 1, 698])
+    d_r, i_r = knn_mod.knn_ref(p, 6, mask=m)
+    d, i = knn_mod.knn_ref_rows(p, 6, m, rows)
+    assert torch.equal(d, d_r[rows]) and torch.equal(i, i_r[rows])
