@@ -15,13 +15,15 @@ Phases, in order; any failure exits non-zero:
    cameras at the recipe's two-level settings (k1 128, k2 640, t2 128,
    occupancy sort, pair budget 0), both levels, level 2 fed level 1's
    t_out. Both print errors and fwd/bwd times (CUDA events, median of 5
-   blocks) per camera beside each kernel's bound. Then the seg
-   backward's chain, timed: frames whose runs are all of one length, of
-   faint pairs that every pixel walks to the end, queued behind a
-   sleeping kernel so the events time the device alone: one CTA on each
-   camera's longest run (its own pairs, and faint pairs of that length)
-   and on 64 and 768 faint pairs (the time a pair adds, forward too), and
-   768-pair runs at 1, 2 and 4 CTAs an SM.
+   blocks) per camera beside each kernel's bound; two forward launches
+   must give the same bits. Then the seg kernels' chain, timed: frames
+   whose runs are all of one length, queued behind a sleeping kernel so
+   the events time the device alone: one CTA of each kernel on each
+   camera's longest run (its own pairs; its image held to the plain
+   version), beside the launch's time per camera; one backward CTA on
+   faint pairs of those lengths; one CTA of each kernel on 64 and 768
+   faint pairs that every pixel walks to the end (the time a pair adds);
+   and 768-pair backward runs at 1, 2 and 4 CTAs an SM.
    2 (knn): the kNN kernel against its plain version, bit for bit, at the
    recipe's capacity: the fixture's 12740 means as live rows padded with
    dead rows to 16384, k = 6 (the ABC fetch), 11 and 15, plus a mask with
@@ -101,7 +103,9 @@ Phases, in order; any failure exits non-zero:
    each probe kernel against its plain version and the script's oracle,
    with times beside the bound and, where one PyTorch call computes the
    same function, that call's (and the device times of each probe and
-   of its library call from torch.profiler). Last, the host cost of a
+   of its library call from torch.profiler); the onehot probe must
+   launch one device kernel a call and take less device time than
+   ``onehot @ c``. Last, the host cost of a
    dyn_write and a dyn_read call split into its parts (argument checks,
    allocation, stream lookup, the ctypes call with its launch, the whole
    wrapper), each beside the form it replaced, and the device activities
@@ -434,12 +438,37 @@ def chain_case(n_tiles: int, pairs: int, device):
     return feats, s_f, gt
 
 
-def phase_seg_chain(device, cases, basis, fixture_ms: float) -> None:
-    """The seg kernels' chain timed, one CTA alone: the backward on each
-    camera's longest run (its own pairs) and on faint runs of the
-    fixture's longest lengths and of SEG_CHAIN_PAIRS, the forward on the
-    latter; then the backward's longer faint runs at SEG_CHAIN_CTAS_PER_SM
-    CTAs an SM."""
+def longest_runs(cases, device):
+    """Per fixture camera, its longest run alone as one frame row: (feats,
+    s_f, gt) of its own pairs and cotangent row."""
+    out = []
+    for cs in cases:
+        fr = int(cs["pbins"].counts_f.argmax())
+        a, b = (int(x) for x in cs["s_f"][fr:fr + 2])
+        out.append((cs["feats"][a:b].contiguous(),
+                    torch.tensor([0, b - a], dtype=torch.int32,
+                                 device=device),
+                    cs["gt"][fr:fr + 1].contiguous()))
+    return out
+
+
+def own_run_ms(kernel: str, runs, basis) -> list:
+    """Device ms of one CTA alone on each of ``runs`` (longest_runs), the
+    seg ``kernel`` ("fwd" or "bwd"), through queued_ms."""
+    from edgegaussians_tpu_torch.ops import segpair
+    if kernel == "fwd":
+        return [queued_ms(lambda: segpair.segpair_fwd(f, s, basis), 20)
+                for f, s, _ in runs]
+    return [queued_ms(lambda: segpair.segpair_bwd(f, s, basis, g), 20)
+            for f, s, g in runs]
+
+
+def phase_seg_chain(device, cases, basis, fixture_ms: dict) -> None:
+    """The seg kernels' chain timed, one CTA alone: both kernels on each
+    camera's longest run (its own pairs), beside the launch's time per
+    camera, and on faint runs of SEG_CHAIN_PAIRS (the time a pair adds);
+    the backward on faint runs of the fixture's longest lengths, and its
+    longer faint runs at SEG_CHAIN_CTAS_PER_SM CTAs an SM."""
     from edgegaussians_tpu_torch.ops import segpair
     lo, hi = SEG_CHAIN_PAIRS
     runs = [int(cs["pbins"].counts_f.max()) for cs in cases]
@@ -448,6 +477,9 @@ def phase_seg_chain(device, cases, basis, fixture_ms: float) -> None:
         rel_err(segpair.segpair_bwd(feats, s_f, basis, gt),
                 segpair.segpair_bwd_ref(feats, s_f, basis, gt),
                 f"chain run of {hi} pairs: dfeats")
+        check_image((segpair.segpair_fwd(feats, s_f, basis)
+                     - segpair.segpair_fwd_ref(feats, s_f, basis))
+                    .abs().max().item(), f"chain run of {hi} pairs")
 
         def timed(kernel: str, n_tiles: int, pairs: int) -> float:
             feats, s_f, gt = chain_case(n_tiles, pairs, device)
@@ -457,15 +489,12 @@ def phase_seg_chain(device, cases, basis, fixture_ms: float) -> None:
             return queued_ms(
                 lambda: segpair.segpair_bwd(feats, s_f, basis, gt), 20)
 
-        own = []
-        for cs in cases:
-            fr = int(cs["pbins"].counts_f.argmax())
-            a, b = (int(x) for x in cs["s_f"][fr:fr + 2])
-            feats = cs["feats"][a:b].contiguous()
-            s_f = torch.tensor([0, b - a], dtype=torch.int32, device=device)
-            gt = cs["gt"][fr:fr + 1].contiguous()
-            own.append(queued_ms(
-                lambda: segpair.segpair_bwd(feats, s_f, basis, gt), 20))
+        longest = longest_runs(cases, device)
+        for f, s, _ in longest:
+            check_image((segpair.segpair_fwd(f, s, basis)
+                         - segpair.segpair_fwd_ref(f, s, basis))
+                        .abs().max().item(), f"longest run of {f.shape[0]}")
+        own = {k: own_run_ms(k, longest, basis) for k in ("fwd", "bwd")}
         alone = {p: timed("bwd", 1, p) for p in sorted({lo, hi, *runs})}
         fwd = {p: timed("fwd", 1, p) for p in (lo, hi)}
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -487,10 +516,15 @@ def phase_seg_chain(device, cases, basis, fixture_ms: float) -> None:
     log(f"segpair_bwd faint runs of {hi} pairs on {sms} SMs: "
         + ", ".join(f"{c} CTA(s) an SM {t:.4f} ms ({t / shared[1]:.2f}x)"
                     for c, t in shared.items()))
-    log(f"segpair_bwd {fixture_ms:.4f} ms per camera beside one CTA alone "
-        f"on each camera's longest run {runs}: its own pairs "
-        + ", ".join(f"{t:.4f}" for t in own) + " ms; faint pairs "
-        + ", ".join(f"{alone[r]:.4f}" for r in runs) + " ms")
+    for k in ("fwd", "bwd"):
+        ms = fixture_ms[f"segpair_{k}"]
+        log(f"segpair_{k} {ms:.4f} ms per camera beside one CTA alone on "
+            f"each camera's longest run {runs}: its own pairs "
+            + ", ".join(f"{t:.4f}" for t in own[k]) + " ms (x"
+            + ", x".join(f"{t / ms:.2f}" for t in own[k])
+            + f" of the launch; mean x{np.mean(own[k]) / ms:.2f})"
+            + ("; faint pairs " + ", ".join(f"{alone[r]:.4f}" for r in runs)
+               + " ms" if k == "bwd" else ""))
 
 
 def phase_kernels(device):
@@ -555,7 +589,15 @@ def phase_kernels(device):
     log(f"per camera: {per_cam[2]:.0f} pair-pixel evaluations, "
         f"{per_cam[0] / 1e6:.2f} MB (fwd) / {per_cam[1] / 1e6:.2f} MB (bwd)")
     ms = time_kernels(calls, len(cases), bounds)
-    phase_seg_chain(device, cases, basis, ms["segpair_bwd"][0])
+    with torch.no_grad():
+        twice = [segpair.segpair_fwd(cases[0]["feats"], cases[0]["s_f"], basis)
+                 for _ in range(2)]
+    if not torch.equal(*twice):
+        raise AssertionError("segpair_fwd: two launches on the same inputs "
+                             "differ")
+    log("segpair_fwd: two launches on camera 0 bit-equal")
+    phase_seg_chain(device, cases, basis,
+                    {k: v[0] for k, v in ms.items()})
     return err, ms, bounds
 
 
@@ -2154,9 +2196,27 @@ def phase_lab_probes(device):
                if has_lib else "none")
             + f", bound {bounds[key][0]:.5f} ms ({bounds[key][1]}; "
             f"{nbytes / 1e6:.3f} MB)")
+    onehot_device(device, per["onehot"][5], per["onehot"][6])
     probe_host_split(device)
     shard_sum_device(device)
     return err, ms, bounds
+
+
+def onehot_device(device, dev_ms: float, lib_dev_ms: float) -> None:
+    """Phase 8: the onehot probe (the script's run P3) launches one device
+    kernel a call and nothing else, and its device time is below that of
+    ``onehot @ c`` on the same inputs (both from the profiler windows of
+    phase_lab_probes); raises otherwise."""
+    from edgegaussians_tpu_torch.lab import probes
+    t = probes.case_tensors("P3 onehot-matmul", device)
+    per_call, windows = one_kernel_per_call(
+        lambda: probes.probe_onehot(t["r8"], t["c"]), "probe_onehot")
+    log(f"probe_onehot: device activities per call {per_call:.2f} "
+        f"(profiler; records per window {windows}); device "
+        f"{dev_ms:.4f} ms against onehot @ c {lib_dev_ms:.4f} ms")
+    if not 0.0 < dev_ms < lib_dev_ms:
+        raise AssertionError(f"probe_onehot: device {dev_ms:.4f} ms, not "
+                             f"below onehot @ c's {lib_dev_ms:.4f} ms")
 
 
 def phase_full(tmp: str):

@@ -9,9 +9,22 @@
 // (edgegaussians_tpu_torch/lab/probes.py):
 //
 //   roll       out = x + 0.5 * roll(x, shift, axis): an index roll;
-//   onehot     out[i, :] = sum_j [seg[0, j] == i] * c[j, :]: the one-hot
-//              built in the kernel and reduced with FMAs (a segmented sum;
-//              no library product);
+//   onehot     out[i, :] = sum_j [seg[0, j] == i] * c[j, :], a segmented
+//              sum, owner-computes (no one-hot and no product is built).
+//              Each CTA owns a block of output rows (and of 16-byte column
+//              vectors, 2 a thread); in rounds of 256 ids it compacts, by
+//              warp ballots, the source rows whose id equals one of its
+//              row indices into one list per row, in ascending j, then
+//              each owned vector loads its row's source rows 8 side by
+//              side and adds them in that order. For a finite c the
+//              one-hot product adds the same terms in the same order plus
+//              exact zeros, which change no bit. c must be finite: where a
+//              row of c holds inf or NaN, the product's 0 * inf puts NaN
+//              in every output row, while this kernel adds that row only
+//              to the row its id names. An id that is no integer in
+//              [0, J) matches no row; a row that no id names is written 0.
+//              Every source row is read by the one CTA that owns its id
+//              (c once), not by every CTA;
 //   dyn_write  window b, rows [offs[b], offs[b] + win) of out, gets
 //              (b + 1) + row, the rest of out 0: owner-computes. Each CTA
 //              owns a block of output rows and loads offs into shared
@@ -58,6 +71,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int VEC_PER_CTA = 512;      // dyn_write / dyn_read: 16-byte
                                       // vectors a CTA stores, 2 a thread
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int ONEHOT_ROWS = 16;       // onehot: most output rows a CTA owns
+constexpr int ONEHOT_VEC_PER_THREAD = 2;
+constexpr int ONEHOT_LOADS = 8;       // source rows loaded side by side
 constexpr int SLAB = 128;             // vmem_dyn: buffer columns per CTA
 constexpr int VMEM_THREADS = 512;
 
@@ -81,22 +99,100 @@ probe_roll_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-// one CTA per output row i; seg row 0 holds the segment id of each c row
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void set_zero(float4& a) {
+  a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+__device__ __forceinline__ void set_zero(float& a) { a = 0.0f; }
+
+// grid (cdiv(n_seg, rows_per_cta), cdiv(cols_v, vec_cols)): CTA (x, y)
+// owns output rows [x * rows_per_cta, ...) and vector columns [y *
+// vec_cols, ...) of out [n_seg, cols_v], at most 2 vectors a thread
+// (V = float4: 16-byte vectors; float where a row is not 16-byte). seg
+// row 0 holds the segment id of each row of cmat [n_seg, cols_v].
+template <typename V>
 __global__ void __launch_bounds__(THREADS)
 probe_onehot_kernel(const float* __restrict__ seg,
-                    const float* __restrict__ cmat, float* __restrict__ out,
-                    int n_seg, int cols) {
-  extern __shared__ float rloc[];
-  for (int j = threadIdx.x; j < n_seg; j += THREADS) rloc[j] = seg[j];
-  __syncthreads();
-  const float i = static_cast<float>(blockIdx.x);
-  for (int c = threadIdx.x; c < cols; c += THREADS) {
-    float acc = 0.0f;
-    for (int j = 0; j < n_seg; ++j) {
-      const float onehot = rloc[j] == i ? 1.0f : 0.0f;
-      acc = fmaf(onehot, cmat[static_cast<size_t>(j) * cols + c], acc);
+                    const V* __restrict__ cmat, V* __restrict__ out,
+                    int n_seg, int cols_v, int rows_per_cta, int vec_cols) {
+  __shared__ int s_list[ONEHOT_ROWS][THREADS];   // a round's j per row
+  __shared__ int s_warp[WARPS][ONEHOT_ROWS];     // matches per warp, row
+  __shared__ int s_count[ONEHOT_ROWS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int n_rows = min(rows_per_cta, n_seg - r0);
+  const int c0 = blockIdx.y * vec_cols;
+  const int n_cols = min(vec_cols, cols_v - c0);
+  V acc[ONEHOT_VEC_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < ONEHOT_VEC_PER_THREAD; ++i) set_zero(acc[i]);
+  // rounds of THREADS source rows: the ids of this CTA's rows compacted
+  // into one list per row, in ascending j
+  for (int j0 = 0; j0 < n_seg; j0 += THREADS) {
+    const int j = j0 + threadIdx.x;
+    int k = -1;   // the owned row whose index the id equals exactly
+    if (j < n_seg) {
+      const float id = seg[j];
+      if (id >= static_cast<float>(r0) &&
+          id < static_cast<float>(r0 + n_rows) && id == floorf(id))
+        k = static_cast<int>(id) - r0;
     }
-    out[static_cast<size_t>(blockIdx.x) * cols + c] = acc;
+    int pos = 0;
+    for (int kk = 0; kk < n_rows; ++kk) {
+      const unsigned m = __ballot_sync(FULL_MASK, k == kk);
+      if (lane == 0) s_warp[warp][kk] = __popc(m);
+      if (k == kk) pos = __popc(m & ((1u << lane) - 1u));
+    }
+    __syncthreads();
+    if (k >= 0) {   // the warps before this one come first
+      for (int w = 0; w < warp; ++w) pos += s_warp[w][k];
+      s_list[k][pos] = j;
+    }
+    if (threadIdx.x < n_rows) {
+      int n = 0;
+      for (int w = 0; w < WARPS; ++w) n += s_warp[w][threadIdx.x];
+      s_count[threadIdx.x] = n;
+    }
+    __syncthreads();
+    // each owned vector adds its row's source rows in ascending j: the
+    // loads of ONEHOT_LOADS rows side by side, then the sums in order
+#pragma unroll
+    for (int i = 0; i < ONEHOT_VEC_PER_THREAD; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      if (v < n_rows * n_cols) {
+        const int row = v / n_cols;
+        const int col = c0 + v % n_cols;
+        const int n = s_count[row];
+        for (int q0 = 0; q0 < n; q0 += ONEHOT_LOADS) {
+          V x[ONEHOT_LOADS];
+#pragma unroll
+          for (int u = 0; u < ONEHOT_LOADS; ++u) {
+            if (q0 + u < n)
+              x[u] = __ldg(cmat + static_cast<size_t>(s_list[row][q0 + u]) *
+                                      cols_v + col);
+          }
+#pragma unroll
+          for (int u = 0; u < ONEHOT_LOADS; ++u) {
+            if (q0 + u < n) add_to(acc[i], x[u]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the lists are read before the next round's
+  }
+#pragma unroll
+  for (int i = 0; i < ONEHOT_VEC_PER_THREAD; ++i) {
+    const int v = threadIdx.x + i * THREADS;
+    if (v < n_rows * n_cols)
+      out[static_cast<size_t>(r0 + v / n_cols) * cols_v + c0 + v % n_cols] =
+          acc[i];
   }
 }
 
@@ -251,10 +347,25 @@ int probe_roll(const float* x, float* out, int rows, int cols, int shift,
 
 int probe_onehot(const float* seg, const float* cmat, float* out, int n_seg,
                  int cols, void* stream) {
-  if (n_seg > 0) {
-    probe_onehot_kernel<<<n_seg, THREADS, n_seg * sizeof(float),
-                          static_cast<cudaStream_t>(stream)>>>(
-        seg, cmat, out, n_seg, cols);
+  if (n_seg > 0 && cols > 0) {
+    const bool vec16 = cols % 4 == 0 &&
+        (reinterpret_cast<size_t>(cmat) & 15) == 0 &&
+        (reinterpret_cast<size_t>(out) & 15) == 0;
+    const int cols_v = vec16 ? cols / 4 : cols;
+    const int per_cta = ONEHOT_VEC_PER_THREAD * THREADS;
+    const int vec_cols = cols_v < per_cta ? cols_v : per_cta;
+    const int rows = per_cta / vec_cols < ONEHOT_ROWS ? per_cta / vec_cols
+                                                      : ONEHOT_ROWS;
+    const dim3 grid(cdiv(n_seg, rows), cdiv(cols_v, vec_cols));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec16) {
+      probe_onehot_kernel<float4><<<grid, THREADS, 0, st>>>(
+          seg, reinterpret_cast<const float4*>(cmat),
+          reinterpret_cast<float4*>(out), n_seg, cols_v, rows, vec_cols);
+    } else {
+      probe_onehot_kernel<float><<<grid, THREADS, 0, st>>>(
+          seg, cmat, out, n_seg, cols_v, rows, vec_cols);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,9 @@
 //    a backward CTA alone adds ~160 ns (~320 cycles) a pair where every
 //    pixel walks every pair, ~0.12 ms at the 768-pair cap; on the ABC
 //    fixture's longest runs (187-346 pairs) 0.03-0.06 ms, about the
-//    whole launch's time. Runs are uneven across tiles.
+//    whole launch's time. Runs are uneven across tiles. A forward CTA
+//    alone adds ~40 ns a pair (~128 with a branch per pair) and takes
+//    0.010-0.016 ms on those runs, 46-76% of its launch's 0.022 ms.
 // 2. What a CTA does per pair, in its 8 warps: ~25 instructions per pixel
 //    on the alpha and transmittance math (an expf, and in the backward a
 //    division), the barriers of each batch, and the latency between them.
@@ -50,8 +52,18 @@
 // cross-CTA carry or atomics. Pairs are staged in shared memory in batches
 // (coalesced loads, broadcast reads). A pixel stops once its transmittance
 // falls below 1e-4, which is exact because t only falls, and the CTA stops
-// when all its pixels have (__syncthreads_and). Splitting long runs across
-// CTAs with a transmittance hand-off (1) is left to later work.
+// when all its pixels have (__syncthreads_and).
+//
+// Splitting long runs across CTAs against (1) was measured for the forward
+// and not taken: 64-pair work items of the flat pair array from a ticket
+// counter, a run's per-pixel (t, acc) handed from item to item through
+// global memory behind a release/acquire flag, the t-free terms of the
+// continuation computed before the wait. On the fixture's longest runs it
+// took 0.0132-0.0152 ms against 0.0167 for one CTA, but a whole camera
+// 0.068 ms against 0.021: an item alone costs ~8 us, most of it the
+// serial latency of the ticket, the run-table search and the staging,
+// which one CTA a row pays once (chip_smoke.py's chain timing and
+// scripts/torch_kernel_ab.py; PERF.md section 6).
 //
 // The backward does the reduction (3) on the tensor cores. Each warp owns
 // 32 pixels, i.e. 4 k-steps of the product. Its pixels write their dla for
@@ -70,14 +82,22 @@
 // atomics. Per pair, the reduction now costs a CTA ~8 stores plus ~40
 // warp instructions of fragment loads, splits and MMAs.
 //
-// Against (1) and (2), the backward computes what does not depend on t
-// (the guard, alpha, 1 - alpha and dla) for the 16 pairs of a tile side
-// by side, and walks only a multiply and a compare per pair along the
-// chain; it divides with __fdividef (MUFU reciprocal and a multiply,
-// within 2 ulp for 1 - alpha in [0.001, 1)) where IEEE division costs a
-// CTA ~20 instructions a pair; empty runs return at once. Batches are double
-// buffered: the next batch's features arrive by cp.async (16 bytes a
-// thread where feats is 16-byte aligned) while this batch computes.
+// Against (1) and (2), both kernels compute what does not depend on t
+// (the guard, alpha, 1 - alpha, and in the backward dla) for 16 pairs of
+// a tile side by side, and walk only a multiply and a compare per pair
+// along the chain; empty runs return at once (the forward writing its
+// zero row). Batches are double buffered: the next batch's features
+// arrive by cp.async (16 bytes a thread where feats is 16-byte aligned)
+// while this batch computes. The backward divides with __fdividef (MUFU
+// reciprocal and a multiply, within 2 ulp for 1 - alpha in [0.001, 1))
+// where IEEE division costs a CTA ~20 instructions a pair. The forward
+// keeps expf, as the backward does, so that the two agree on every pair
+// at the 1/255 threshold, and walks its chain without branches: with a
+// branch per pair (skip, stop) one CTA took 77 ns a pair of the fixture's
+// longest run, branch-free 48 ns, and 42 ns with no chain at all; two or
+// four pixels a thread (to share the features' shared-memory loads) were
+// slower, groups of 8 pairs slower and of 32 within 3% (PERF.md section
+// 6).
 
 #include <cuda_runtime.h>
 
@@ -86,9 +106,11 @@ namespace {
 constexpr int P = 256;           // pixels of a 16x16 tile = threads per CTA
 constexpr int NF = 8;            // features per pair
 constexpr int WARPS = P / 32;
-constexpr int FWD_BATCH = 256;   // pairs staged per pass (8 KB)
+constexpr int FWD_BATCH = 128;   // pairs staged per pass (2 x 4 KB)
 constexpr int BWD_BATCH = 64;    // pairs staged per pass (2 x 2 KB)
-constexpr int MT = 16;           // pairs per MMA tile: the m of m16n8k8
+constexpr int FWD_GROUP = 16;    // forward: pairs side by side
+constexpr int MT = 16;           // backward: pairs side by side; the m of
+                                 // m16n8k8
 constexpr int KSTEPS = 4;        // a warp's 32 pixels: 4 k-steps of 8
 constexpr int DSTRIDE = 36;      // row of a warp's D tile: 32 pixels + 4
 constexpr int NJ = 6;            // gradient columns the reduction makes
@@ -103,49 +125,6 @@ __device__ __forceinline__ float log_alpha(const float* f, const float* b) {
 #pragma unroll
   for (int j = 1; j < 6; ++j) la = fmaf(f[j], b[j], la);
   return la;
-}
-
-__global__ void __launch_bounds__(P)
-segpair_fwd_kernel(const float* __restrict__ feats,
-                   const int* __restrict__ s_f,
-                   const float* __restrict__ basis,
-                   float* __restrict__ img) {
-  __shared__ float sf[FWD_BATCH * NF];
-  const int fr = blockIdx.x;
-  const int px = threadIdx.x;
-  const int s = s_f[fr];
-  const int e = s_f[fr + 1];
-  float b[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
-
-  float t = 1.0f;
-  float acc = 0.0f;
-  bool done = false;
-  for (int base = s; base < e; base += FWD_BATCH) {
-    const int n = min(FWD_BATCH, e - base);
-    for (int i = px; i < n * NF; i += P)
-      sf[i] = feats[static_cast<size_t>(base) * NF + i];
-    __syncthreads();
-    for (int k = 0; k < n && !done; ++k) {
-      const float* f = sf + k * NF;
-      const float la = log_alpha(f, b);
-      if (!(la <= f[6] + SIGMA_GUARD_EPS)) continue;
-      float a = expf(la);
-      if (!(a >= ALPHA_THRESHOLD)) continue;
-      a = fminf(a, ALPHA_CLAMP);
-      const float t_inc = t * (1.0f - a);
-      if (t_inc < TRANSMITTANCE_EPS) {
-        done = true;
-        break;
-      }
-      acc += a * t;
-      t = t_inc;
-    }
-    // also the barrier before the next batch overwrites sf
-    if (__syncthreads_and(done)) break;
-  }
-  img[static_cast<size_t>(fr) * P + px] = acc;
 }
 
 __device__ __forceinline__ unsigned to_tf32(float x) {
@@ -181,6 +160,87 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
                    :: "r"(d + 4 * i), "l"(src + i));
   }
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One pair of the forward's chain on one pixel, branch-free. A pair that
+// is not kept (guard, threshold, or past the batch) comes with alpha 0,
+// which leaves t and acc as they are bit for bit: t * (1 - 0) = t and
+// acc + 0 * t = acc. t is multiplied by every pair's 1 - alpha, stopped
+// or not: t only falls, so once a pair takes it below 1e-4 (the stop)
+// every later pair finds it below too and adds 0 * t. So the pairs
+// before the stop add what a serial loop with a break adds, bit for bit;
+// t < 1e-4 is "done"; and the loop-carried path is one multiply on t and
+// one multiply-add on acc.
+__device__ __forceinline__ void chain_step(float a, float& t, float& acc) {
+  const float t_inc = t * (1.0f - a);
+  acc = fmaf(t_inc >= TRANSMITTANCE_EPS ? a : 0.0f, t, acc);
+  t = t_inc;
+}
+
+// The forward walks its run in batches of FWD_BATCH pairs, double buffered
+// as the backward's; within a batch, the t-free terms of FWD_GROUP pairs
+// side by side, then the chain over them in pair order.
+__global__ void __launch_bounds__(P)
+segpair_fwd_kernel(const float* __restrict__ feats,
+                   const int* __restrict__ s_f,
+                   const float* __restrict__ basis,
+                   float* __restrict__ img) {
+  __shared__ __align__(16) float sf[2][FWD_BATCH * NF];
+  const int fr = blockIdx.x;
+  const int px = threadIdx.x;
+  const int s = s_f[fr];
+  const int e = s_f[fr + 1];
+  float* out = img + static_cast<size_t>(fr) * P + px;
+  if (s >= e) {   // an empty run: a zero row, nothing to stage
+    *out = 0.0f;
+    return;
+  }
+  const bool vec16 = (reinterpret_cast<size_t>(feats) & 15) == 0;
+  stage_async(sf[0], feats + static_cast<size_t>(s) * NF,
+              min(FWD_BATCH, e - s) * NF, vec16);
+  float b[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
+
+  float t = 1.0f;
+  float acc = 0.0f;
+  int buf = 0;
+  for (int base = s; base < e; base += FWD_BATCH, buf ^= 1) {
+    const int n = min(FWD_BATCH, e - base);
+    const int next = base + FWD_BATCH;
+    // the next batch lands in the other buffer while this one computes;
+    // an empty group keeps the wait below uniform
+    if (next < e)
+      stage_async(sf[buf ^ 1], feats + static_cast<size_t>(next) * NF,
+                  min(FWD_BATCH, e - next) * NF, vec16);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const float* fb = sf[buf];
+    for (int m0 = 0; m0 < n; m0 += FWD_GROUP) {
+      // a warp whose pixels are all done skips the rest of the batch
+      if (__all_sync(FULL_MASK, t < TRANSMITTANCE_EPS)) break;
+      // what does not depend on t, for the FWD_GROUP pairs side by side
+      float a[FWD_GROUP];
+#pragma unroll
+      for (int r = 0; r < FWD_GROUP; ++r) {
+        const float* f = fb + (m0 + r) * NF;
+        const float la = log_alpha(f, b);
+        const float x = expf(la);
+        const bool ok = m0 + r < n && la <= f[6] + SIGMA_GUARD_EPS &&
+                        x >= ALPHA_THRESHOLD;
+        a[r] = ok ? fminf(x, ALPHA_CLAMP) : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < FWD_GROUP; ++r) chain_step(a[r], t, acc);
+    }
+    // the CTA stops once every pixel is done; also the barrier before the
+    // next batch's prefetch overwrites this batch's buffer
+    if (__syncthreads_and(t < TRANSMITTANCE_EPS)) break;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  *out = acc;
 }
 
 __global__ void __launch_bounds__(P)

@@ -7,7 +7,9 @@ segmented compositor wanted; here each is that construct's Hopper form
 
 - :func:`probe_roll`: ``x + 0.5 * roll(x, shift, axis)`` (:51);
 - :func:`probe_onehot`: a one-hot [J, J] from segment ids (row 0 of
-  ``seg [8, J]``) times ``c [J, cols]``: a segmented sum (:66);
+  ``seg [8, J]``) times ``c [J, cols]``: a segmented sum (:66). The kernel
+  computes it owner-first, as the sum over the rows of ``c`` whose id
+  equals the output row's index, in ascending order, in one launch;
 - :func:`probe_dyn_write`: window b of ``win`` rows at row ``offs[b]``
   of a ``[rows, cols]`` array gets ``(b + 1) + row``; the rest is zero
   here (undefined in the script, whose oracle reads the windows only)
@@ -139,7 +141,10 @@ def probe_roll_ref(x: torch.Tensor, shift: int = 2, axis: int = 0
 
 def probe_onehot(seg: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``onehot(seg[0]) @ c``: seg [8, J] f32 segment ids (row 0 read),
-    c [J, cols] f32 -> [J, cols]."""
+    c [J, cols] f32 -> [J, cols]. c must be finite: the kernel adds only
+    the rows of c that an output row's id names, so an inf or NaN in c
+    reaches that row alone, where the product's ``0 * inf`` puts NaN in
+    every row."""
     if not _on_cuda(seg, "onehot"):
         return probe_onehot_ref(seg, c)
     _check_2d("seg", seg)

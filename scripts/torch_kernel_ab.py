@@ -7,13 +7,17 @@ Each turn runs in its own process from the tree it names: that tree's
 ``edgegaussians_tpu_torch`` builds its kernels (into the tree's own
 ``build/torch_kernels/``) and is timed on the same inputs, made by this
 repository's ``chip_smoke.py`` helpers: the 5 fixture cameras at the seg
-recipe's settings (both seg kernels, ms per camera), the fixture's 12740
-means padded to 16384 rows (k = 6, 11, 15) and the 131072-row cloud
-(k = 6). CUDA events, median of 5 blocks. Each turn prints one JSON line
-with its times and the compiler's register and shared-memory report of
-the two sources; the run ends with a table of the turns and the card's
-name and power limit. A tree is a checkout of the repository, e.g. the
-parent commit unpacked with ``git archive`` into a git-ignored directory.
+recipe's settings (both seg kernels, ms per camera, and one CTA of each
+alone on each camera's longest run, device time of calls queued behind a
+sleeping kernel), the fixture's 12740 means padded to 16384 rows (k = 6,
+11, 15), the 131072-row cloud (k = 6), and the onehot probe on the
+script's run beside ``onehot @ c`` (both also by their device time from
+torch.profiler). CUDA events, median of 5 blocks. Each turn prints one
+JSON line with its times and the compiler's register and shared-memory
+report of the three sources; the run ends with a table of the turns and
+the card's name and power limit. A tree is a checkout of the repository,
+e.g. the parent commit unpacked with ``git archive`` into a git-ignored
+directory.
 Needs a CUDA GPU.
 """
 
@@ -27,6 +31,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ONEHOT_CASE = "P3 onehot-matmul"
 
 
 def turn(root: str) -> dict:
@@ -36,6 +41,7 @@ def turn(root: str) -> dict:
     import torch
 
     import edgegaussians_tpu_torch
+    from edgegaussians_tpu_torch.lab import probes
     from edgegaussians_tpu_torch.ops import _build, knn, segpair
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_inputs", os.path.join(REPO, "chip_smoke.py"))
@@ -62,7 +68,22 @@ def turn(root: str) -> dict:
         pts, mask = cs.knn_cloud(device, cs.KNN_BIG)
         out[f"knn_{pts.shape[0]}_k{cs.KNN_BIG_K}_ms"] = cs.cuda_ms(
             lambda: knn.knn(pts, cs.KNN_BIG_K, mask), 3)
-    for name in ("segpair", "knn"):
+        longest = cs.longest_runs(cases, device)
+        for k in ("fwd", "bwd"):
+            out[f"segpair_{k}_longest_run_alone_ms"] = cs.own_run_ms(
+                k, longest, basis)
+        t = probes.case_tensors(ONEHOT_CASE, device)
+        lib = cs.probe_library(ONEHOT_CASE, t)
+        out["probe_onehot_ms"] = cs.cuda_ms(
+            lambda: probes.probe_onehot(t["r8"], t["c"]), 200)
+        out["probe_onehot_library_ms"] = cs.cuda_ms(lib, 200)
+    # device times last, each in its own profiler window (chip_smoke.py's
+    # profiled_device)
+    out["probe_onehot_device_ms"] = cs.profiled_device(
+        lambda: probes.probe_onehot(t["r8"], t["c"]),
+        "probe_onehot_kernel")[0]
+    out["probe_onehot_library_device_ms"] = cs.profiled_device(lib, "")[0]
+    for name in ("segpair", "knn", "lab_probes"):
         log = str(_build.library_path(name)) + ".log"
         out[f"{name}_ptxas"] = [ln.strip() for ln in open(log)
                                 if "registers" in ln or "Compiling" in ln]
@@ -90,8 +111,9 @@ def main() -> int:
     keys = [k for k in rows[0] if k.endswith("_ms")]
     print("turn  " + "  ".join(keys))
     for i, r in enumerate(rows):
-        print(f"{i} {r['root']}  "
-              + "  ".join(f"{r[k]:.4f}" for k in keys))
+        print(f"{i} {r['root']}  " + "  ".join(
+            "/".join(f"{x:.4f}" for x in r[k]) if isinstance(r[k], list)
+            else f"{r[k]:.4f}" for k in keys))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

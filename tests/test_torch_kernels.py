@@ -38,7 +38,11 @@ order than the plain cumsum), dfeats 1e-4 of the plain version's max-abs;
 the probes exactly equal to their plain versions and oracles (the one-hot
 sum within 1e-5); the one-launch dyn_write / dyn_read kernels exactly
 equal on random windows and over poisoned allocations, one device kernel
-per call.
+per call; the owner-computes onehot kernel bit for bit the in-order sum
+of its rows (the one-hot product adds exact zeros beside the same terms)
+on random ids, one device kernel per call. The seg forward: image atol
+1e-5 on runs around its 16-pair groups and 128-pair batches and on stops
+at their edges, the same bits from two launches.
 """
 
 import numpy as np
@@ -111,8 +115,10 @@ def test_kernels_match_plain_versions(device, name):
     gen = torch.Generator(device=device).manual_seed(0)
     gt = torch.rand((T, 256), generator=gen, device=device)
     img_k = segpair.segpair_fwd(feats, s_f, basis)
+    img_again = segpair.segpair_fwd(feats, s_f, basis)
     dfe_k = segpair.segpair_bwd(feats, s_f, basis, gt)
     torch.cuda.synchronize()
+    assert torch.equal(img_k, img_again)     # no atomics in the image
     img_r = segpair.segpair_fwd_ref(feats, s_f, basis)
     dfe_r = segpair.segpair_bwd_ref(feats, s_f, basis, gt)
     torch.testing.assert_close(img_k, img_r, rtol=0, atol=1e-5)
@@ -1053,3 +1059,213 @@ def test_knn_kernel_slices_and_compaction(device, case, n, k):
         others = torch.arange(n, device=device) != live
         assert bool((i_k[others, 0] == live).all())
         assert float(d_k[live, 0]) == knn_mod.F32_MAX
+
+
+# -- the seg forward's batches, t-free groups and stops ----------------------
+
+SEG_FWD_BATCH = 128     # pairs per staged batch of csrc/segpair.cu's forward
+SEG_GROUP = 16          # pairs whose t-free terms it computes side by side
+STOP_PIXEL = 7 * 16 + 3     # pixel (3, 7) of the tile, row-major
+# (run lengths, stops): a stop (row, k, pixel) puts two opaque pairs at
+# pairs k - 1 and k of the row (alpha 0.995 on the pixel, or on every
+# pixel for pixel None), so that the pixel stops exactly at pair k
+SEG_FWD_RUNS = {
+    "lengths": ([0, 1, 15, 16, 17, SEG_FWD_BATCH - 1, SEG_FWD_BATCH,
+                 SEG_FWD_BATCH + 1, 255, 256, 257, 0, 768], []),
+    "empty_rows": ([0, 0, 40, 0, 300, 0, 0, 1, 0, 0], []),
+    "pixel_stops_at_group_edges": (
+        [100, 100, 100], [(0, SEG_GROUP - 1, STOP_PIXEL),
+                          (1, SEG_GROUP, STOP_PIXEL),
+                          (2, 3 * SEG_GROUP, STOP_PIXEL)]),
+    "pixel_stops_at_batch_edges": (
+        [200, 200, 300], [(0, SEG_FWD_BATCH - 1, STOP_PIXEL),
+                          (1, SEG_FWD_BATCH, STOP_PIXEL),
+                          (2, 2 * SEG_FWD_BATCH, STOP_PIXEL)]),
+    # every pixel stops: the CTA leaves at the end of that batch
+    "all_stop_at_batch_edges": (
+        [200, 200, 400, 30], [(0, SEG_FWD_BATCH - 1, None),
+                              (1, SEG_FWD_BATCH, None),
+                              (2, 2 * SEG_FWD_BATCH + SEG_GROUP, None)]),
+    "all_stop_inside_a_batch": ([300, 30], [(0, 70, None)]),
+}
+
+
+def _seg_fwd_features(name, seed=0):
+    """(feats [B,8], s_f [T+1] int32, stops) for SEG_FWD_RUNS[name]:
+    broad, faint Gaussians in tile-local coordinates (as
+    _seg_run_features), plus the opaque pairs of each stop."""
+    counts, stops = SEG_FWD_RUNS[name]
+    r = np.random.default_rng(seed)
+    b = sum(counts)
+    src = np.zeros((b, 8), np.float32)
+    src[:, 0] = r.uniform(0.004, 0.05, b)
+    src[:, 2] = r.uniform(0.004, 0.05, b)
+    src[:, 1] = r.uniform(-0.5, 0.5, b) * np.sqrt(src[:, 0] * src[:, 2])
+    src[:, 3:5] = r.uniform(-6.0, 22.0, (b, 2))
+    src[:, 5] = np.log(r.uniform(0.004, 0.02, b))
+    src[:, 6] = 1.0
+    s_f = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    for row, k, pixel in stops:
+        at = s_f[row] + k
+        if pixel is None:
+            src[at - 1:at + 1, :6] = [0.0, 0.0, 0.0, 0.0, 0.0, np.log(0.995)]
+        else:
+            src[at - 1:at + 1, :6] = [2.0, 0.0, 2.0, 3.5, 7.5, np.log(0.995)]
+    zero = torch.zeros(b)
+    feats = segpair.build_pair_features(torch.from_numpy(src), zero, zero)
+    return feats.contiguous(), torch.from_numpy(s_f), stops
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    start = (-(buf.data_ptr() // 4) + 1) % 4
+    view = buf[start:start + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", list(SEG_FWD_RUNS))
+def test_seg_fwd_kernel_on_run_lengths_and_stops(device, name, aligned):
+    """The forward against its plain version (image atol 1e-5): runs of
+    every length around the 16-pair group and the 128-pair batch, up to
+    the 768 cap; empty rows among full ones and at the end; a pixel, or
+    every pixel, whose stop falls on the last or first pair of a group or
+    of a batch, or inside a batch with more batches after it (checked on
+    the plain version's transmittance); a feats view that is not 16-byte
+    aligned (the 4-byte staging path). Two launches give the same
+    bits."""
+    feats, s_f, stops = (x.to(device) if torch.is_tensor(x) else x
+                         for x in _seg_fwd_features(name))
+    if not aligned:
+        feats = _misaligned(feats)
+    basis = tiles.pixel_basis(16, device=device)
+    img = segpair.segpair_fwd(feats, s_f, basis)
+    again = segpair.segpair_fwd(feats, s_f, basis)
+    torch.cuda.synchronize()
+    ref = segpair.segpair_fwd_ref(feats, s_f, basis)
+    torch.testing.assert_close(img, ref, rtol=0, atol=1e-5)
+    assert torch.equal(img, again)
+    counts = (s_f[1:] - s_f[:-1]).tolist()
+    assert all(bool((img[r] == 0).all()) for r, c in enumerate(counts)
+               if c == 0)
+    _, _, _, keep, _, slot_valid = segpair._padded_alpha(feats, s_f, basis)
+    for row, k, pixel in stops:
+        pixels = [pixel] if pixel is not None else list(range(256))
+        for p in pixels:
+            stopped = (~keep[row, :, p]) & slot_valid[row]
+            assert int(stopped.float().argmax()) == k and bool(stopped[k])
+
+
+# -- the owner-computes onehot probe -----------------------------------------
+
+def _onehot_inputs(j, cols, seed):
+    """(seg [8, J], c [J, cols]) in NumPy. Row 0 of seg holds random ids:
+    integers in [0, J/3) drawn unsorted (some rows named often, most
+    never), integers outside [0, J) and non-integers (near an index and
+    halfway); c is normal. tests/test_torch_lab.py shares it."""
+    rng = np.random.default_rng(70 + seed)
+    ids = rng.integers(0, max(1, j // 3), j).astype(np.float32)
+    kind = rng.random(j)
+    past = kind < 0.1
+    ids[past] = rng.integers(j, 2 * j + 2, int(past.sum()))
+    below = (kind >= 0.1) & (kind < 0.2)
+    ids[below] = -rng.integers(1, 5, int(below.sum()))
+    frac = (kind >= 0.2) & (kind < 0.3)
+    ids[frac] += rng.choice([0.5, 1e-3, -2e-3], int(frac.sum()))
+    c = rng.normal(size=(j, cols)).astype(np.float32)
+    return np.broadcast_to(ids, (8, j)).copy(), c
+
+
+def _onehot_in_order(seg, c):
+    """The one-hot product as the onehot kernel computes it: a zero row
+    per output row, then, in ascending j, c[j] added to the row that
+    seg[0, j] names when the id is an integer in [0, J) (a sequential
+    index_add_ on the CPU). tests/test_torch_lab.py shares it."""
+    ids = seg[0].cpu()
+    named = (ids == torch.floor(ids)) & (ids >= 0) & (ids < seg.shape[1])
+    out = torch.zeros_like(c.cpu())
+    out.index_add_(0, ids[named].long(), c.cpu()[named])
+    return out
+
+
+@pytest.mark.parametrize("j,cols", [(128, 256), (97, 12), (33, 5),
+                                    (600, 64), (40, 2052), (1, 4)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_onehot_kernel_on_random_ids(device, j, cols, seed):
+    """Random unsorted ids, ids outside [0, J) and non-integer ids; J not
+    a multiple of 32, more than one round of 256 ids, rows wider than one
+    CTA's vectors, rows that are not 16-byte (the float path): bit for bit
+    the in-order sum, and within the oracle's tolerance of the plain
+    one-hot product."""
+    seg_np, c_np = _onehot_inputs(j, cols, seed)
+    seg = torch.from_numpy(seg_np).to(device)
+    c = torch.from_numpy(c_np).to(device)
+    got = probes.probe_onehot(seg, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _onehot_in_order(seg, c))
+    torch.testing.assert_close(got, probes.probe_onehot_ref(seg, c), rtol=0,
+                               atol=probes.ONEHOT_ATOL)
+
+
+def test_onehot_kernel_on_a_misaligned_c(device):
+    """c starting 4 bytes past a 16-byte boundary takes the float path."""
+    seg_np, c_np = _onehot_inputs(128, 256, 3)
+    seg = torch.from_numpy(seg_np).to(device)
+    c = _misaligned(torch.from_numpy(c_np).to(device))
+    got = probes.probe_onehot(seg, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _onehot_in_order(seg, c))
+
+
+def test_onehot_kernel_writes_every_element(device, monkeypatch):
+    """torch.empty returning NaNs: the rows that no id names still come
+    out 0."""
+    seg_np, c_np = _onehot_inputs(200, 256, 4)
+    seg = torch.from_numpy(seg_np).to(device)
+    c = torch.from_numpy(c_np).to(device)
+    empty_like = torch.empty_like
+    monkeypatch.setattr(torch, "empty_like", lambda *a, **k: empty_like(
+        *a, **k).fill_(float("nan")))
+    got = probes.probe_onehot(seg, c)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    ref = _onehot_in_order(seg, c)
+    assert torch.equal(got.cpu(), ref) and bool((ref == 0).any())
+
+
+def test_onehot_kernel_launches_one_kernel_per_call(device):
+    """Each call launches one kernel, the probe's, and no fill or copy;
+    each call adds one to the launch count. The count of launches is read
+    from the host side of the profiler's window (the runtime's launch
+    records: one a call, nothing else launched) and must be exact; the
+    device records that come through must all be the probe's kernel. On
+    an H100 the device records of a window are now and then lost
+    for tens of milliseconds at a time (0 or 9 of 10 in several windows in
+    a row, with kernels stamped before their launches), while the host's
+    launch records were all there in every window read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t = probes.case_tensors("P3 onehot-matmul", device)
+    key = "probe_onehot"
+    probes.probe_onehot(t["r8"], t["c"])
+    torch.cuda.synchronize()
+    before = probes.launch_counts[key]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            probes.probe_onehot(t["r8"], t["c"])
+        torch.cuda.synchronize()
+    assert probes.launch_counts[key] == before + 10
+    on_host = [e.name for e in prof.events()
+               if e.device_type != DeviceType.CUDA]
+    launches = [n for n in on_host if "LaunchKernel" in n]
+    moves = [n for n in on_host if "Memset" in n or "Memcpy" in n]
+    assert len(launches) == 10 and not moves, (launches, moves)
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    assert len(on_device) <= 10, on_device
+    assert all(f"{key}_kernel" in name for name in on_device), on_device

@@ -33,6 +33,8 @@ from jax.experimental import pallas as pl
 from edgegaussians_tpu_torch.lab import chunked, probes, scene
 from edgegaussians_tpu_torch.ops import raster_v2, tiles
 
+from test_torch_kernels import _onehot_in_order, _onehot_inputs
+
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -279,6 +281,31 @@ def test_jax_probes_run_exactly_in_interpret_mode(interpret):
         err = go()
         assert err <= (probes.ONEHOT_ATOL if label == "P3" else 0.0), \
             (label, err)
+
+
+@pytest.mark.parametrize("j,cols", [(128, 256), (97, 12), (300, 8),
+                                    (33, 5)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_onehot_product_is_a_segment_sum(j, cols, seed):
+    """The algebra the onehot kernel relies on: onehot(seg[0]) @ c equals
+    the sum, per output row, of the rows of c whose id equals its index,
+    added in ascending j (the terms a one-hot product adds beside them are
+    exact zeros); ids outside [0, J) and non-integer ids match no row.
+    Against the plain version within the oracle's tolerance (a product
+    orders its sums its own way), and bit for bit against an in-order sum
+    in NumPy."""
+    seg, c = _onehot_inputs(j, cols, seed)
+    got = _onehot_in_order(torch.from_numpy(seg), torch.from_numpy(c))
+    ref = probes.probe_onehot_ref(torch.from_numpy(seg), torch.from_numpy(c))
+    torch.testing.assert_close(got, ref, rtol=0, atol=probes.ONEHOT_ATOL)
+    in_order = np.zeros_like(c)
+    for k, i in enumerate(seg[0]):
+        if i == np.floor(i) and 0 <= i < j:
+            in_order[int(i)] += c[k]
+    np.testing.assert_array_equal(got.numpy(), in_order)
+    named = set(int(i) for i in seg[0] if i == np.floor(i) and 0 <= i < j)
+    assert named and len(named) < j     # some rows get sums, others stay 0
+    assert (got.numpy()[sorted(set(range(j)) - named)] == 0).all()
 
 
 def test_probe_windows_out_of_range_and_overlapping():
