@@ -14,9 +14,15 @@ Phases, in order; any failure exits non-zero:
    2 (dense): the dense compositor kernels against theirs on the same
    cameras at the recipe's two-level settings (k1 128, k2 640, t2 128,
    occupancy sort, pair budget 0), both levels, level 2 fed level 1's
-   t_out. Both print errors and fwd/bwd times (CUDA events, median of 5
-   blocks) per camera beside each kernel's bound; two forward launches
-   must give the same bits. Then the seg kernels' chain, timed: frames
+   t_out. Both print errors and fwd/bwd times per camera (CUDA events,
+   median of 5 blocks; beside the kernel's, its device time: calls queued
+   behind a sleeping kernel) beside each kernel's bound; two launches of
+   each kernel must give the same bits.
+   The dense kernels' chain, timed one CTA alone on each camera's
+   longest row of each level (its own slots, the same bits as in the
+   whole launch) beside the level's launch; a faint level-2 row of 640
+   slots that every pixel walks, held to the plain versions. Then the
+   seg kernels' chain, timed: frames
    whose runs are all of one length, queued behind a sleeping kernel so
    the events time the device alone: one CTA of each kernel on each
    camera's longest run (its own pairs; its image held to the plain
@@ -109,7 +115,8 @@ Phases, in order; any failure exits non-zero:
    dyn_write and a dyn_read call split into its parts (argument checks,
    allocation, stream lookup, the ctypes call with its launch, the whole
    wrapper), each beside the form it replaced, and the device activities
-   per call from the profiler, which must be one kernel; and the
+   per call from the profiler, which must be one kernel (with
+   ``--profile_dir``, counted on the host's launch records); and the
    shard-sum kernel's and torch.sum's device times. Every torch.profiler
    window of the run is in phase 8, after the in-process training runs.
 
@@ -377,19 +384,26 @@ def check_image(e_img: float, what: str, atol: float = IMG_ATOL) -> None:
 
 
 def time_kernels(calls, n_cases: int, bounds):
-    """Kernel and plain ms per camera for each entry of ``calls``."""
+    """(kernel ms, plain ms, library ms: None, kernel device ms) per
+    camera for each entry of ``calls``. The kernel's and the plain
+    version's ms are CUDA events over back-to-back calls; the kernel's
+    device ms is its calls queued behind a sleeping kernel (queued_ms),
+    which the wrapper's host work (~20 us a call) does not pace."""
     ms = {}
     with torch.no_grad():
         for name, (kern, plain) in calls.items():
             # per camera: one call of each over the cameras per rep
             ms[name] = (cuda_ms(kern, 20) / n_cases,
-                        cuda_ms(plain, 2) / n_cases)
-            log(f"{name}: kernel {ms[name][0]:.4f} ms, plain "
-                f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                f"({bounds[name][1]}) per camera")
+                        cuda_ms(plain, 2) / n_cases, None,
+                        queued_ms(kern, 20) / n_cases)
+            log(f"{name}: kernel {ms[name][0]:.4f} ms (device "
+                f"{ms[name][3]:.4f} ms), plain {ms[name][1]:.4f} ms, "
+                f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) per "
+                "camera")
     fwd, bwd = calls
-    log(f"fwd+bwd per camera: kernel {ms[fwd][0] + ms[bwd][0]:.4f} ms, "
-        f"plain {ms[fwd][1] + ms[bwd][1]:.4f} ms")
+    log(f"fwd+bwd per camera: kernel {ms[fwd][0] + ms[bwd][0]:.4f} ms "
+        f"(device {ms[fwd][3] + ms[bwd][3]:.4f} ms), plain "
+        f"{ms[fwd][1] + ms[bwd][1]:.4f} ms")
     return ms
 
 
@@ -723,6 +737,45 @@ def phase_dense_kernels(device):
             f"absgrad_rel={rel[3]:.3g}")
         check_image(e_img, f"camera {c}")
 
+    dense_timing_inputs(cases, basis)
+
+    def over_levels(kernel: str, plain=False, levels=(1, 2)):
+        return lambda: [dense_call(kernel, dense_level_args(cs, lv), basis,
+                                   plain)
+                        for cs in cases for lv in levels]
+
+    calls = {f"raster_v2_{k}": (over_levels(k), over_levels(k, plain=True))
+             for k in ("fwd", "bwd")}
+    per_cam = work / len(cases)
+    bounds = {"raster_v2_fwd": bound_ms(per_cam[0], per_cam[2], FWD_OPS),
+              "raster_v2_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
+    log(f"per camera, both levels: {per_cam[2]:.0f} slot-pixel "
+        f"evaluations, {per_cam[0] / 1e6:.2f} MB (fwd) / "
+        f"{per_cam[1] / 1e6:.2f} MB (bwd)")
+    ms = time_kernels(calls, len(cases), bounds)
+    with torch.no_grad():
+        level_ms = {(k, lv): queued_ms(over_levels(k, levels=(lv,)), 20)
+                    / len(cases) for k in ("fwd", "bwd") for lv in (1, 2)}
+        for lv in (1, 2):
+            args = dense_level_args(cases[0], lv)
+            for k in ("fwd", "bwd"):
+                twice = [as_tuple(dense_call(k, args, basis))
+                         for _ in range(2)]
+                if not all(map(torch.equal, *twice)):
+                    raise AssertionError(f"raster_v2_{k} level {lv}: two "
+                                         "launches on the same inputs "
+                                         "differ")
+    log("raster_v2_fwd, raster_v2_bwd: two launches on camera 0 bit-equal "
+        "at both levels")
+    phase_dense_chain(device, cases, basis, level_ms)
+    return err, ms, bounds
+
+
+def dense_timing_inputs(cases, basis) -> None:
+    """Each camera's timing inputs beside its frame: level 2's t_in from
+    the plain level 1's t_out (every tree and kernel times the same
+    inputs), a total, and the level-2 rows of g and of the total."""
+    from edgegaussians_tpu_torch.ops import composite, raster_v2
     for cs in cases:
         fr, bins2 = cs["fr"], cs["bins2"]
         with torch.no_grad():
@@ -733,34 +786,125 @@ def phase_dense_kernels(device):
         cs["g2"] = composite.ovf_take(cs["g"], bins2).contiguous()
         cs["total2"] = composite.ovf_take(cs["total"], bins2).contiguous()
 
-    def over_cases(fn):
-        return lambda: [fn(cs) for cs in cases]
 
-    def fwd(f):
-        return over_cases(lambda cs: (
-            f(cs["fr"].feats1, cs["fr"].counts1, basis),
-            f(cs["fr"].feats2, cs["fr"].counts2, basis, cs["tin2"])))
+def dense_level_args(cs, level: int) -> tuple:
+    """(feats, counts, t_in, g, total) of one camera's ``level`` (1 or 2),
+    after dense_timing_inputs."""
+    fr = cs["fr"]
+    if level == 1:
+        return fr.feats1, fr.counts1, None, cs["g"], cs["total"]
+    return fr.feats2, fr.counts2, cs["tin2"], cs["g2"], cs["total2"]
 
-    def bwd(f):
-        return over_cases(lambda cs: (
-            f(cs["fr"].feats1, cs["fr"].counts1, basis, cs["g"], None,
-              cs["total"]),
-            f(cs["fr"].feats2, cs["fr"].counts2, basis, cs["g2"],
-              cs["tin2"], cs["total2"])))
 
-    calls = {
-        "raster_v2_fwd": (fwd(raster_v2.composite_fwd_seg),
-                          fwd(raster_v2.composite_fwd_seg_ref)),
-        "raster_v2_bwd": (bwd(raster_v2.composite_bwd_seg),
-                          bwd(raster_v2.composite_bwd_seg_ref)),
-    }
-    per_cam = work / len(cases)
-    bounds = {"raster_v2_fwd": bound_ms(per_cam[0], per_cam[2], FWD_OPS),
-              "raster_v2_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
-    log(f"per camera, both levels: {per_cam[2]:.0f} slot-pixel "
-        f"evaluations, {per_cam[0] / 1e6:.2f} MB (fwd) / "
-        f"{per_cam[1] / 1e6:.2f} MB (bwd)")
-    return err, time_kernels(calls, len(cases), bounds), bounds
+def dense_call(kernel: str, args, basis, plain: bool = False):
+    """The dense ``kernel`` ("fwd" or "bwd") on ``args`` (as
+    dense_level_args): the kernel's wrapper, or its plain version."""
+    from edgegaussians_tpu_torch.ops import raster_v2
+    feats, counts, t_in, g, total = args
+    if kernel == "fwd":
+        fn = (raster_v2.composite_fwd_seg_ref if plain
+              else raster_v2.composite_fwd_seg)
+        return fn(feats, counts, basis, t_in)
+    fn = raster_v2.composite_bwd_seg_ref if plain else \
+        raster_v2.composite_bwd_seg
+    return fn(feats, counts, basis, g, t_in, total)
+
+
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_dense(args, basis, what: str) -> None:
+    """Both dense kernels on ``args`` against their plain versions: image,
+    t_out and dfeats under phase 2's gates."""
+    img_k, tout_k = dense_call("fwd", args, basis)
+    img_r, tout_r = dense_call("fwd", args, basis, plain=True)
+    check_image((img_k - img_r).abs().max().item(), what)
+    check_t_out(tout_k, tout_r, what)
+    rel_err(dense_call("bwd", args, basis),
+            dense_call("bwd", args, basis, plain=True), f"{what}: dfeats")
+
+
+def longest_row(cs, level: int) -> int:
+    """The row of one camera's ``level`` with the most live slots (the
+    first of several)."""
+    return int(dense_level_args(cs, level)[1].argmax())
+
+
+def longest_rows(cases, level: int) -> list:
+    """Per camera, its longest_row of ``level`` alone as a one-row frame:
+    dense_level_args of it."""
+    out = []
+    for cs in cases:
+        r = longest_row(cs, level)
+        out.append(tuple(None if x is None else x[r:r + 1].contiguous()
+                         for x in dense_level_args(cs, level)))
+    return out
+
+
+def check_longest_rows(cases, rows, level: int, basis) -> None:
+    """Each dense kernel on each camera's longest row of ``level`` alone
+    (``rows``, from longest_rows) gives that row of its launch on the
+    camera's whole frame, bit for bit (a CTA walks one row and nothing
+    crosses rows; the whole frames are held to the plain versions)."""
+    for c, (cs, one) in enumerate(zip(cases, rows)):
+        r = longest_row(cs, level)
+        for k in ("fwd", "bwd"):
+            full = as_tuple(dense_call(k, dense_level_args(cs, level),
+                                       basis))
+            alone = as_tuple(dense_call(k, one, basis))
+            if not all(torch.equal(x[r:r + 1], y)
+                       for x, y in zip(full, alone)):
+                raise AssertionError(f"raster_v2_{k}: camera {c} level "
+                                     f"{level}'s longest row alone differs "
+                                     "from that row of the whole launch")
+
+
+def dense_chain_case(slots: int, device) -> tuple:
+    """A one-row level-2 frame (K = K2) of ``slots`` live broad slots of
+    alpha ~SEG_CHAIN_ALPHA on every pixel (chain_case's pairs), entered at
+    a seeded t_in in [0.5, 1), so that no pixel stops (0.5 * 0.995^640 >
+    1e-4); slots past the count carry the -1e30 constant term of the
+    frame's contract: dense_level_args of it."""
+    pairs, _, g = chain_case(1, slots, device)
+    feats = torch.zeros((1, K2, 8), device=device)
+    feats[..., 5] = -1e30
+    feats[0, :slots] = pairs
+    gen = torch.Generator(device=device).manual_seed(3)
+    t_in = 0.5 + 0.5 * torch.rand((1, 256), generator=gen, device=device)
+    total = torch.rand((1, 256), generator=gen, device=device)
+    return (feats, torch.tensor([slots], dtype=torch.int32, device=device),
+            t_in, g, total)
+
+
+def phase_dense_chain(device, cases, basis, level_ms: dict) -> None:
+    """The dense kernels' chain, timed one CTA alone (queued_ms): each
+    kernel on each camera's longest row of each level (its own slots,
+    the same bits as that row of the whole launch), beside that level's
+    launch per camera; and both kernels on a faint level-2 row of K2
+    slots that every pixel walks to the end, held to the plain versions."""
+    with torch.no_grad():
+        check_dense(dense_chain_case(K2, device), basis,
+                    f"faint level-2 row of {K2} slots")
+        own = {}
+        for lv in (1, 2):
+            rows = longest_rows(cases, lv)
+            check_longest_rows(cases, rows, lv, basis)
+            for k in ("fwd", "bwd"):
+                own[(k, lv)] = [
+                    queued_ms(lambda: dense_call(k, args, basis), 20)
+                    for args in rows]
+            own[("slots", lv)] = [int(a[1]) for a in rows]
+    for k in ("fwd", "bwd"):
+        for lv in (1, 2):
+            ms, alone = level_ms[(k, lv)], own[(k, lv)]
+            log(f"raster_v2_{k} level {lv}: {ms:.4f} ms per camera (device) "
+                "beside "
+                f"one CTA alone on each camera's longest row "
+                f"{own[('slots', lv)]} live slots: "
+                + ", ".join(f"{t:.4f}" for t in alone) + " ms (x"
+                + ", x".join(f"{t / ms:.2f}" for t in alone)
+                + f" of the launch; mean x{np.mean(alone) / ms:.2f})")
 
 
 def pair_cases(device):
@@ -1863,10 +2007,12 @@ def lab_work(sc):
             evals)
 
 
-def phase_lab_kernels(device):
+def phase_lab_kernels(device, traced: bool = False):
     """Phase 8, each lab kernel against its plain version on the lab
     scene (level 1, then level 2 fed the plain level 1's t_out) and each
-    probe against its plain version and the oracle; their times."""
+    probe against its plain version and the oracle; their times.
+    ``traced``: earlier phases ran under torch.profiler (one_kernel_per_call
+    then counts host records)."""
     from edgegaussians_tpu_torch.lab import chunked, probes, scene
     log("== phase 8: lab kernels vs plain versions on the lab scene, "
         "level 1 and level 2")
@@ -1932,7 +2078,7 @@ def phase_lab_kernels(device):
                 f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
                 f"({bounds[name][1]}), both levels")
 
-        p_err, p_ms, p_bounds = phase_lab_probes(device)
+        p_err, p_ms, p_bounds = phase_lab_probes(device, traced)
     err.update(p_err)
     ms.update(p_ms)
     bounds.update(p_bounds)
@@ -2008,10 +2154,11 @@ def profiled_device(fn, kernel_name: str, calls: int = 50):
     return us / calls / 1e3, sum(e.count for e in device) / calls
 
 
-def device_records(fn, kernel_name: str, calls: int) -> tuple:
-    """(records of kernels whose name holds ``kernel_name``, records of
-    any other device activity: kernels, fills, copies) in one
-    torch.profiler window over ``calls`` calls of ``fn``."""
+def profiler_records(fn, kernel_name: str, calls: int) -> tuple:
+    """(host runtime launch records, host memset or memcpy records,
+    device records of kernels whose name holds ``kernel_name``, any other
+    device records: kernels, fills, copies) in one torch.profiler window
+    over ``calls`` calls of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2021,40 +2168,57 @@ def device_records(fn, kernel_name: str, calls: int) -> tuple:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    named = other = 0
-    for e in prof.key_averages():
+    launches = moves = named = other = 0
+    for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            if kernel_name in e.key:
-                named += e.count
+            if kernel_name in e.name:
+                named += 1
             else:
-                other += e.count
-    return named, other
+                other += 1
+        elif "LaunchKernel" in e.name:
+            launches += 1
+        elif "Memset" in e.name or "Memcpy" in e.name:
+            moves += 1
+    return launches, moves, named, other
 
 
-def one_kernel_per_call(fn, kernel_name: str, calls: int = 50,
-                        windows: int = 3) -> tuple:
-    """Device activities per call of ``fn`` and the (named, other) record
-    counts of each window read; raises unless a window holds exactly one
-    record of ``kernel_name`` per call and no other record. Any other
-    activity (a fill, a copy) or more than one kernel a call raises at
-    once. A window short of records and holding nothing else is read
-    again, up to ``windows`` windows: CUPTI drops device records now and
-    then (49 of 50 kernels in one window on the H100 machine), and a
-    dropped record cannot be told from a call that launched nothing."""
+def one_kernel_per_call(fn, kernel_name: str, host_records: bool = False,
+                        calls: int = 50, windows: int = 3) -> tuple:
+    """Device activities per call of ``fn`` and the record counts (host
+    launches, host memsets or memcpys, device records of the kernel,
+    other device records) of each window read. Raises unless a window
+    holds exactly one device record of ``kernel_name`` per call and no
+    other device record. Any other activity (a fill, a copy) or more than
+    one kernel a call raises at once. A window short of records and
+    holding nothing else is read again, up to ``windows`` windows: CUPTI
+    drops device records now and then (49 of 50 kernels in one window on
+    the H100 machine), and a dropped record cannot be told from a call
+    that launched nothing.
+
+    ``host_records`` (for a run whose earlier phases were traced, after
+    which every window lost device records: 39 of 50 on the H100
+    machine) reads one window and counts the launches on the host's
+    records instead: exactly one runtime launch record a call and no
+    memset or memcpy record; every device record that comes through must
+    still be the kernel's, at most one a call."""
     seen = []
-    for _ in range(windows):
-        named, other = device_records(fn, kernel_name, calls)
-        seen.append((named, other))
-        if other or named > calls:
+    for _ in range(1 if host_records else windows):
+        launches, moves, named, other = counts = profiler_records(
+            fn, kernel_name, calls)
+        seen.append(counts)
+        if moves or other or named > calls or (
+                host_records and launches != calls):
             raise AssertionError(
-                f"{kernel_name}: {named} kernel and {other} other device "
-                f"records over {calls} calls, expected one kernel a call")
-        if named == calls:
+                f"{kernel_name}: {launches} host launch records, {moves} "
+                f"memset or memcpy records, {named} kernel and {other} "
+                f"other device records over {calls} calls, expected one "
+                "kernel a call")
+        if host_records or named == calls:
             return named / calls, seen
     raise AssertionError(
         f"{kernel_name}: short of one kernel record a call in each of "
-        f"{windows} profiler windows of {calls} calls (named, other): "
-        f"{seen}")
+        f"{windows} profiler windows of {calls} calls (host launches, "
+        f"memsets or memcpys, kernel, other): {seen}")
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -2070,7 +2234,7 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
     return us
 
 
-def probe_host_split(device) -> dict:
+def probe_host_split(device, traced: bool = False) -> dict:
     """Phase 8: the host cost of a dyn_write and a dyn_read call (the
     script's runs P4 and P5), part by part, in microseconds per call over
     HOST_CALLS calls: the argument checks, the allocation, the stream
@@ -2134,7 +2298,7 @@ def probe_host_split(device) -> dict:
                 per_call_prototypes),
             "wrapper": host_us(c["call"]),
         }
-        per_call, windows = one_kernel_per_call(c["call"], name)
+        per_call, seen = one_kernel_per_call(c["call"], name, traced)
         us["device_activities_per_call"] = per_call
         split[p] = us
         log(f"{name} host us per call ({HOST_CALLS} calls each): checks "
@@ -2145,11 +2309,12 @@ def probe_host_split(device) -> dict:
             f"{us['ctypes_launch']:.3f} (prototypes set per call "
             f"{us['ctypes_launch_per_call_prototypes']:.3f}), whole wrapper "
             f"{us['wrapper']:.3f}; device activities per call "
-            f"{per_call:.2f} (profiler; records per window {windows})")
+            f"{per_call:.2f} (profiler; records per window: host launches, "
+            f"memsets or memcpys, kernel, other: {seen})")
     return split
 
 
-def phase_lab_probes(device):
+def phase_lab_probes(device, traced: bool = False):
     """Each probe kernel on the script's runs against its plain version
     and the oracle; per probe the times of its runs, summed, beside the
     bytes bound and the library call's, and its device time from the
@@ -2196,24 +2361,26 @@ def phase_lab_probes(device):
                if has_lib else "none")
             + f", bound {bounds[key][0]:.5f} ms ({bounds[key][1]}; "
             f"{nbytes / 1e6:.3f} MB)")
-    onehot_device(device, per["onehot"][5], per["onehot"][6])
-    probe_host_split(device)
+    onehot_device(device, per["onehot"][5], per["onehot"][6], traced)
+    probe_host_split(device, traced)
     shard_sum_device(device)
     return err, ms, bounds
 
 
-def onehot_device(device, dev_ms: float, lib_dev_ms: float) -> None:
+def onehot_device(device, dev_ms: float, lib_dev_ms: float,
+                  traced: bool = False) -> None:
     """Phase 8: the onehot probe (the script's run P3) launches one device
     kernel a call and nothing else, and its device time is below that of
     ``onehot @ c`` on the same inputs (both from the profiler windows of
     phase_lab_probes); raises otherwise."""
     from edgegaussians_tpu_torch.lab import probes
     t = probes.case_tensors("P3 onehot-matmul", device)
-    per_call, windows = one_kernel_per_call(
-        lambda: probes.probe_onehot(t["r8"], t["c"]), "probe_onehot")
+    per_call, seen = one_kernel_per_call(
+        lambda: probes.probe_onehot(t["r8"], t["c"]), "probe_onehot", traced)
     log(f"probe_onehot: device activities per call {per_call:.2f} "
-        f"(profiler; records per window {windows}); device "
-        f"{dev_ms:.4f} ms against onehot @ c {lib_dev_ms:.4f} ms")
+        f"(profiler; records per window: host launches, memsets or "
+        f"memcpys, kernel, other: {seen}); device {dev_ms:.4f} ms against "
+        f"onehot @ c {lib_dev_ms:.4f} ms")
     if not 0.0 < dev_ms < lib_dev_ms:
         raise AssertionError(f"probe_onehot: device {dev_ms:.4f} ms, not "
                              f"below onehot @ c's {lib_dev_ms:.4f} ms")
@@ -2339,7 +2506,8 @@ def main() -> int:
         f"of each seg kernel; the shard-sum probe under all-reduce err "
         f"{probe_err:.3g}")
     lab_launches = phase_lab_path()
-    err_l, ms_l, bounds_l = phase_lab_kernels(device)
+    err_l, ms_l, bounds_l = phase_lab_kernels(
+        device, traced=args.profile_dir is not None)
     err.update(err_l)
     ms.update(ms_l)
     bounds.update(bounds_l)
@@ -2380,7 +2548,8 @@ def main() -> int:
             "max_abs_err": err[name], "ms": ms[name][0],
             "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            "library_ms": ms[name][2] if len(ms[name]) > 2 else None})
+            "library_ms": ms[name][2] if len(ms[name]) > 2 else None,
+            "device_ms": ms[name][3] if len(ms[name]) > 3 else None})
     print(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,20 +9,17 @@
 //
 // Input contract (built by ops/composite.py): frame row r holds K
 // depth-ordered slots feats[r, k, 0:8] (f32, row-major [T,K,8]), of which
-// the first min(counts[r], K) can be live; slots past the count carry a
-// -1e30 constant term, so skipping them is exact. One 16x16 tile has
-// P = 256 pixels whose monomial basis is basis [8,256]. The walk starts
-// from the carried transmittance t_in[r, px] (1 where t_in is null). Per
-// slot and pixel:
-//   log a = sum_{j<6} f_j * basis_j(px)          (full f32 FMAs)
-//   ok = log a <= f_6 + SIGMA_GUARD_EPS;  a = exp(log a);  ok &= a >= 1/255
-//   a = min(a, 0.999);  t_inc = t * (1 - a);  stop once t_inc < 1e-4
-//   img += a * t;  t = t_inc
-// The forward writes img and t_out (the transmittance the walk ends with;
-// at a stop that is the t_inc below 1e-4, so a following segment keeps
-// nothing, as with the TPU kernel's chunk-rounded value). The backward
-// takes the cotangent pre-folded by the GLOBAL per-tile total of all
-// segments, gt2 = g * (1 - total), and uses the algebraic suffix
+// the first min(counts[r], K) can be live (a negative count is 0); slots
+// past the count carry a -1e30 constant term and are never read. One 16x16
+// tile has P = 256 pixels whose monomial basis is basis [8,256]. The walk
+// starts from the carried transmittance t_in[r, px] (1 where t_in is null)
+// and follows the gsplat rules of csrc/compositor.cuh. The forward writes
+// img and t_out, the transmittance the walk ends with: where it stays
+// >= 1e-4 the product of every live slot's 1 - alpha; below 1e-4 its value
+// depends on where the walk left the row, and a following segment keeps
+// nothing from the pixel either way. The backward takes the upstream g and
+// the GLOBAL per-tile total of all segments, folds the cotangent
+// gt2 = g * (1 - total) per pixel itself, and uses the algebraic suffix
 //   d log a = a * gt2 / (1 - a) on kept slots with ok and a < 0.999,
 //   dfeats[r, k, j] = sum_px d log a * basis_j(px) for j < 6; 0 for j = 6, 7,
 // and 0 on every slot the walk never reaches.
@@ -30,44 +27,59 @@
 // What bounds it on this card: neither bytes nor FLOPs. At the ABC
 // fallback shapes (2500 rows of 128 slots, then 128 rows of 640) a view is
 // some 9M live slot-pixel evaluations (~0.2 GFLOP, 9M expf on the SFUs)
-// over ~13 MB of features and 2.5 MB per [T,256] plane -- a few
-// microseconds at the H100's 3.35 TB/s and 67 TFLOP/s f32. The time goes
-// to the serial transmittance chain along each row (slots are a dependent
-// sequence per pixel), to rows of very uneven length (most tiles are
-// empty, a few hold hundreds), and in the backward to a 6-value reduction
-// over the tile's pixels per slot.
+// over ~13 MB of dfeats and 2.5 MB per [T,256] plane -- a few microseconds
+// at the H100's 3.35 TB/s and 67 TFLOP/s f32. The time goes to the serial
+// transmittance chain along each row (one CTA walks a row; rows are very
+// uneven, most tiles empty and a few hundreds of slots deep), so a level's
+// launch lasts about as long as the one CTA on its longest row
+// (chip_smoke.py phase 2 dense times that CTA alone), and in the backward
+// to the reduction of each slot's six values over the tile's pixels.
 //
-// What the design does about it: one CTA per frame row, one thread per
-// pixel, so every row is walked by exactly one CTA: no carry crosses CTAs
-// and the backward needs no atomics. Only the row's first min(counts, K)
-// slots are read, staged in shared memory in batches (one coalesced load
-// per batch, broadcast reads after). A pixel stops at its first dropped
-// slot, which is exact because t only falls; the CTA stops when all its
-// pixels have (__syncthreads_and). The backward sums each slot's six
-// values with warp shuffles (skipped when the whole warp holds zeros) and
-// a cross-warp sum in shared memory per batch; each slot's row belongs to
-// one CTA, so the result is a plain deterministic store.
+// What the design does about it -- the seg kernels' levers (csrc/segpair.cu,
+// whose header has the measurements), on the dense frame:
+// - One CTA per frame row, one thread per pixel: every row is walked by
+//   exactly one CTA, so no carry crosses CTAs and the backward needs no
+//   atomics. Splitting a row across CTAs was measured on the seg forward
+//   and made a camera 3.3x slower (csrc/segpair.cu).
+// - A row with no live slot, or whose every pixel enters below 1e-4, does
+//   no work: the forward writes img = 0 and t_out = t_in, the backward
+//   zeros with 16-byte stores.
+// - Slots are staged in shared memory in cp.async double-buffered batches
+//   (16 bytes a thread where feats is 16-byte aligned, else 4), the next
+//   batch landing while this one computes.
+// - The t-free terms (log alpha, the guard, expf, the threshold, the
+//   clamp; in the backward dla = a * gt2 / (1 - a) with __fdividef) of 16
+//   slots side by side, then a branch-free chain: a dropped slot enters
+//   with alpha 0, and t is multiplied on past the stop (compositor.cuh's
+//   chain_step), so the image is the serial loop's bit for bit with one
+//   multiply on the loop-carried path. expf, not __expf: the forward and
+//   the backward must decide the same 1/255 threshold.
+// - A warp whose pixels are all below 1e-4 skips the rest of its batch,
+//   and the CTA leaves the row once every pixel is.
+// - The backward's pixel reduction runs on the tensor cores
+//   (compositor.cuh's tile_product, 3xTF32 mma.sync m16n8k8); each warp
+//   leaves its own partial, and the 8 partials are added in warp order:
+//   deterministic. Its output, mostly the zeros of slots past the walk,
+//   goes out in 16-byte stores.
 
-#include <cuda_runtime.h>
+#include "compositor.cuh"
 
 namespace {
 
-constexpr int P = 256;           // pixels of a 16x16 tile = threads per CTA
-constexpr int NF = 8;            // features per slot
-constexpr int WARPS = P / 32;
-constexpr int FWD_BATCH = 256;   // slots staged per pass (8 KB)
-constexpr int BWD_BATCH = 128;   // slots staged per pass (4 KB + 24 KB)
-constexpr float ALPHA_THRESHOLD = 1.0f / 255.0f;
-constexpr float ALPHA_CLAMP = 0.999f;
-constexpr float TRANSMITTANCE_EPS = 1e-4f;
-constexpr float SIGMA_GUARD_EPS = 1e-3f;
-constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int FWD_BATCH = 128;   // slots staged per pass (2 x 4 KB)
+constexpr int BWD_BATCH = 64;    // slots staged per pass (2 x 2 KB)
+constexpr int FWD_GROUP = 16;    // forward: slots side by side
 
-__device__ __forceinline__ float log_alpha(const float* f, const float* b) {
-  float la = f[0] * b[0];
-#pragma unroll
-  for (int j = 1; j < 6; ++j) la = fmaf(f[j], b[j], la);
-  return la;
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// Zero `slots` slots of NF floats from `dst`, the start of a slot of a
+// 16-byte aligned dfeats (so 16-byte aligned itself), in 16-byte stores.
+__device__ __forceinline__ void zero_slots(float* dst, int slots) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < slots * (NF / 4); i += P)
+    d[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
 __global__ void __launch_bounds__(P)
@@ -77,44 +89,62 @@ raster_v2_fwd_kernel(const float* __restrict__ feats,
                      const float* __restrict__ t_in,
                      float* __restrict__ img,
                      float* __restrict__ t_out, int k_cap) {
-  __shared__ float sf[FWD_BATCH * NF];
+  __shared__ __align__(16) float sf[2][FWD_BATCH * NF];
   const int row = blockIdx.x;
   const int px = threadIdx.x;
   const int n = min(max(counts[row], 0), k_cap);
-  const float* rf = feats + static_cast<size_t>(row) * k_cap * NF;
   const size_t pix = static_cast<size_t>(row) * P + px;
+  float t = t_in ? t_in[pix] : 1.0f;
+  // no live slot, or every pixel entered done: t goes out as it came in
+  if (n == 0 || __syncthreads_and(!(t >= TRANSMITTANCE_EPS))) {
+    img[pix] = 0.0f;
+    t_out[pix] = t;
+    return;
+  }
+  const float* rf = feats + static_cast<size_t>(row) * k_cap * NF;
+  const bool vec16 = aligned16(feats);
+  stage_async(sf[0], rf, min(FWD_BATCH, n) * NF, vec16);
   float b[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
 
-  float t = t_in ? t_in[pix] : 1.0f;
   float acc = 0.0f;
-  bool done = !(t >= TRANSMITTANCE_EPS);
-  bool all_done = __syncthreads_and(done);
-  for (int base = 0; base < n && !all_done; base += FWD_BATCH) {
+  int buf = 0;
+  for (int base = 0; base < n; base += FWD_BATCH, buf ^= 1) {
     const int m = min(FWD_BATCH, n - base);
-    for (int i = px; i < m * NF; i += P)
-      sf[i] = rf[static_cast<size_t>(base) * NF + i];
+    const int next = base + FWD_BATCH;
+    // the next batch lands in the other buffer while this one computes;
+    // an empty group keeps the wait below uniform
+    if (next < n)
+      stage_async(sf[buf ^ 1], rf + static_cast<size_t>(next) * NF,
+                  min(FWD_BATCH, n - next) * NF, vec16);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    for (int k = 0; k < m && !done; ++k) {
-      const float* f = sf + k * NF;
-      const float la = log_alpha(f, b);
-      if (!(la <= f[6] + SIGMA_GUARD_EPS)) continue;
-      float a = expf(la);
-      if (!(a >= ALPHA_THRESHOLD)) continue;
-      a = fminf(a, ALPHA_CLAMP);
-      const float t_inc = t * (1.0f - a);
-      if (t_inc < TRANSMITTANCE_EPS) {
-        t = t_inc;
-        done = true;
-        break;
+    const float* fb = sf[buf];
+    for (int m0 = 0; m0 < m; m0 += FWD_GROUP) {
+      // a warp whose pixels are all done skips the rest of the batch
+      if (__all_sync(FULL_MASK, t < TRANSMITTANCE_EPS)) break;
+      // what does not depend on t, for the FWD_GROUP slots side by side
+      float a[FWD_GROUP];
+#pragma unroll
+      for (int r = 0; r < FWD_GROUP; ++r) {
+        const float* f = fb + (m0 + r) * NF;
+        const float la = log_alpha(f, b);
+        const float x = expf(la);
+        const bool ok = m0 + r < m && la <= f[6] + SIGMA_GUARD_EPS &&
+                        x >= ALPHA_THRESHOLD;
+        a[r] = ok ? fminf(x, ALPHA_CLAMP) : 0.0f;
       }
-      acc += a * t;
-      t = t_inc;
+#pragma unroll
+      for (int r = 0; r < FWD_GROUP; ++r) chain_step(a[r], t, acc);
     }
-    // also the barrier before the next batch overwrites sf
-    all_done = __syncthreads_and(done);
+    // the CTA stops once every pixel is done; also the barrier before the
+    // next batch's prefetch overwrites this batch's buffer
+    if (__syncthreads_and(t < TRANSMITTANCE_EPS)) break;
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   img[pix] = acc;
   t_out[pix] = t;
 }
@@ -123,89 +153,126 @@ __global__ void __launch_bounds__(P)
 raster_v2_bwd_kernel(const float* __restrict__ feats,
                      const int* __restrict__ counts,
                      const float* __restrict__ basis,
-                     const float* __restrict__ gt2,
+                     const float* __restrict__ g_in,
+                     const float* __restrict__ total,
                      const float* __restrict__ t_in,
                      float* __restrict__ dfeats, int k_cap) {
-  __shared__ float sf[BWD_BATCH * NF];
-  __shared__ float part[BWD_BATCH][WARPS][6];
+  __shared__ __align__(16) float sf[2][BWD_BATCH * NF];
+  __shared__ __align__(16) float dt[WARPS][MT * DSTRIDE];
+  __shared__ __align__(16) float part[WARPS][BWD_BATCH * NJ];
   const int row = blockIdx.x;
   const int px = threadIdx.x;
   const int lane = px & 31;
   const int warp = px >> 5;
+  const int grp = lane >> 2;   // the fragments' row (A) and column (B)
+  const int tig = lane & 3;    // the fragments' column (A) and row (B)
   const int n = min(max(counts[row], 0), k_cap);
-  const float* rf = feats + static_cast<size_t>(row) * k_cap * NF;
   float* rd = dfeats + static_cast<size_t>(row) * k_cap * NF;
   const size_t pix = static_cast<size_t>(row) * P + px;
+  float t = t_in ? t_in[pix] : 1.0f;
+  // no live slot, or every pixel entered done: the row is zero
+  if (n == 0 || __syncthreads_and(!(t >= TRANSMITTANCE_EPS))) {
+    zero_slots(rd, k_cap);
+    return;
+  }
+  const float* rf = feats + static_cast<size_t>(row) * k_cap * NF;
+  const bool vec16 = aligned16(feats);
+  stage_async(sf[0], rf, min(BWD_BATCH, n) * NF, vec16);
   float b[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
-  const float g = gt2[pix];
+  // the cotangent, folded as the plain version folds it
+  const float g = g_in[pix] * (1.0f - total[pix]);
+  unsigned bhi[KSTEPS][2], blo[KSTEPS][2];
+  const bool b_exact = basis_fragments(basis, warp, grp, tig, bhi, blo);
+  float* dw = dt[warp];
 
-  float t = t_in ? t_in[pix] : 1.0f;
-  bool done = !(t >= TRANSMITTANCE_EPS);  // this pixel keeps nothing more
-  bool all_done = __syncthreads_and(done);  // no pixel does: rows are zero
-  for (int base = 0; base < n; base += BWD_BATCH) {
+  int written = 0;   // slots [0, written) of the row are out
+  int buf = 0;
+  for (int base = 0; base < n; base += BWD_BATCH, buf ^= 1) {
     const int m = min(BWD_BATCH, n - base);
-    if (!all_done) {
-      for (int i = px; i < m * NF; i += P)
-        sf[i] = rf[static_cast<size_t>(base) * NF + i];
-    }
+    const int next = base + BWD_BATCH;
+    // the next batch lands in the other buffer while this one computes;
+    // an empty group keeps the wait below uniform
+    if (next < n)
+      stage_async(sf[buf ^ 1], rf + static_cast<size_t>(next) * NF,
+                  min(BWD_BATCH, n - next) * NF, vec16);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    if (!all_done) {
-      for (int k = 0; k < m; ++k) {
-        float dla = 0.0f;
-        if (!done) {
-          const float* f = sf + k * NF;
+    const float* fb = sf[buf];
+    for (int m0 = 0; m0 < m; m0 += MT) {
+      bool any = false;
+      if (!__all_sync(FULL_MASK, t < TRANSMITTANCE_EPS)) {
+        // what does not depend on t, for the MT slots side by side: 1 - a
+        // of a kept slot (1 for a dropped one, which leaves t as it is),
+        // and dla if the slot is kept with a < 0.999
+        float om[MT], q[MT];
+#pragma unroll
+        for (int r = 0; r < MT; ++r) {
+          const float* f = fb + (m0 + r) * NF;
           const float la = log_alpha(f, b);
-          if (la <= f[6] + SIGMA_GUARD_EPS) {
-            float a = expf(la);
-            if (a >= ALPHA_THRESHOLD) {
-              a = fminf(a, ALPHA_CLAMP);
-              const float om = 1.0f - a;
-              const float t_inc = t * om;
-              if (t_inc < TRANSMITTANCE_EPS) {
-                done = true;
-              } else {
-                if (a < ALPHA_CLAMP) dla = a * (g / om);
-                t = t_inc;
-              }
-            }
-          }
+          const float x = expf(la);
+          const bool ok = m0 + r < m && la <= f[6] + SIGMA_GUARD_EPS &&
+                          x >= ALPHA_THRESHOLD;
+          const float a = fminf(x, ALPHA_CLAMP);
+          om[r] = ok ? 1.0f - a : 1.0f;
+          q[r] = ok && a < ALPHA_CLAMP ? a * __fdividef(g, 1.0f - a) : 0.0f;
         }
-        // every lane joins the reduction, stopped pixels with zeros
-        float v[6];
+        // the chain, branch-free: a multiply and a compare per slot; t is
+        // multiplied on past the stop, so every later slot fails the
+        // compare as the serial loop's break would skip it
 #pragma unroll
-        for (int j = 0; j < 6; ++j) v[j] = dla * b[j];
-        if (__any_sync(FULL_MASK, dla != 0.0f)) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-            for (int j = 0; j < 6; ++j)
-              v[j] += __shfl_xor_sync(FULL_MASK, v[j], off);
-          }
+        for (int r = 0; r < MT; ++r) {
+          const float t_inc = t * om[r];
+          const float dla = t_inc >= TRANSMITTANCE_EPS ? q[r] : 0.0f;
+          t = t_inc;
+          dw[r * DSTRIDE + lane] = dla;
+          any |= dla != 0.0f;
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < 6; ++j) part[k][warp][j] = v[j];
-        }
+      }
+      __syncwarp();
+      // this warp's partial of the MT slots: D [16 x 32] @ B [32 x 8]
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (__any_sync(FULL_MASK, any))
+        tile_product(dw, grp, tig, bhi, blo, b_exact, c);
+      __syncwarp();   // D is read before the next MT slots overwrite it
+      if (tig < NJ / 2) {   // columns 2 tig, 2 tig + 1 of rows grp, grp + 8
+        float* pw = part[warp] + (m0 + grp) * NJ + 2 * tig;
+        *reinterpret_cast<float2*>(pw) = make_float2(c[0], c[1]);
+        *reinterpret_cast<float2*>(pw + 8 * NJ) = make_float2(c[2], c[3]);
       }
     }
     __syncthreads();
-    for (int i = px; i < m * NF; i += P) {
-      const int k = i / NF;
-      const int j = i % NF;
-      float sum = 0.0f;
-      if (!all_done && j < 6) {
+    // the batch's m slots, the 8 warp partials added in warp order: half
+    // h of slot k is columns 4 h .. 4 h + 3
+    for (int i = px; i < m * (NF / 4); i += P) {
+      const int k = i >> 1;
+      const int h = i & 1;
+      float v[4];
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) sum += part[k][w][j];
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * h + jj;
+        float sum = 0.0f;
+        if (j < NJ) {
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) sum += part[w][k * NJ + j];
+        }
+        v[jj] = sum;
       }
-      rd[static_cast<size_t>(base) * NF + i] = sum;
+      *reinterpret_cast<float4*>(rd + static_cast<size_t>(base + k) * NF +
+                                 4 * h) = make_float4(v[0], v[1], v[2], v[3]);
     }
-    // also the barrier before the next batch overwrites sf and part
-    all_done = __syncthreads_and(done);
+    written = base + m;
+    // the CTA leaves the row once every pixel is done: the rest is zero;
+    // also the barrier before the next batch's prefetch overwrites this
+    // batch's buffer and the warps overwrite part
+    if (__syncthreads_and(t < TRANSMITTANCE_EPS)) break;
   }
-  // slots past the row's count: the walk never reaches them
-  for (int i = n * NF + px; i < k_cap * NF; i += P) rd[i] = 0.0f;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // the slots the walk never reaches: past every pixel's stop and the count
+  zero_slots(rd + static_cast<size_t>(written) * NF, k_cap - written);
 }
 
 }  // namespace
@@ -225,13 +292,18 @@ int raster_v2_fwd(const float* feats, const int* counts, const float* basis,
   return static_cast<int>(cudaGetLastError());
 }
 
+// g and total are [num_rows, 256]: the kernel folds gt2 = g * (1 - total).
+// dfeats must be 16-byte aligned (the wrapper allocates it); else the entry
+// launches nothing and returns cudaErrorMisalignedAddress.
 int raster_v2_bwd(const float* feats, const int* counts, const float* basis,
-                  const float* gt2, const float* t_in, float* dfeats,
-                  int num_rows, int k_cap, void* stream) {
+                  const float* g, const float* total, const float* t_in,
+                  float* dfeats, int num_rows, int k_cap, void* stream) {
+  if (!aligned16(dfeats))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (num_rows > 0) {
     raster_v2_bwd_kernel<<<num_rows, P, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        feats, counts, basis, gt2, t_in, dfeats, k_cap);
+        feats, counts, basis, g, total, t_in, dfeats, k_cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -99,83 +99,13 @@
 // slower, groups of 8 pairs slower and of 32 within 3% (PERF.md section
 // 6).
 
-#include <cuda_runtime.h>
+#include "compositor.cuh"
 
 namespace {
 
-constexpr int P = 256;           // pixels of a 16x16 tile = threads per CTA
-constexpr int NF = 8;            // features per pair
-constexpr int WARPS = P / 32;
 constexpr int FWD_BATCH = 128;   // pairs staged per pass (2 x 4 KB)
 constexpr int BWD_BATCH = 64;    // pairs staged per pass (2 x 2 KB)
 constexpr int FWD_GROUP = 16;    // forward: pairs side by side
-constexpr int MT = 16;           // backward: pairs side by side; the m of
-                                 // m16n8k8
-constexpr int KSTEPS = 4;        // a warp's 32 pixels: 4 k-steps of 8
-constexpr int DSTRIDE = 36;      // row of a warp's D tile: 32 pixels + 4
-constexpr int NJ = 6;            // gradient columns the reduction makes
-constexpr float ALPHA_THRESHOLD = 1.0f / 255.0f;
-constexpr float ALPHA_CLAMP = 0.999f;
-constexpr float TRANSMITTANCE_EPS = 1e-4f;
-constexpr float SIGMA_GUARD_EPS = 1e-3f;
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-__device__ __forceinline__ float log_alpha(const float* f, const float* b) {
-  float la = f[0] * b[0];
-#pragma unroll
-  for (int j = 1; j < 6; ++j) la = fmaf(f[j], b[j], la);
-  return la;
-}
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// c += a @ b for one m16n8k8 tile: a [16 x 8] row-major, b [8 x 8]
-// column-major, in TF32 with f32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Start copying `count` floats (a multiple of 4) from global to shared
-// memory without waiting: 16 bytes a thread where both are 16-byte
-// aligned, else 4 bytes.
-__device__ __forceinline__ void stage_async(float* dst, const float* src,
-                                            int count, bool vec16) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (vec16) {
-    for (int i = 4 * threadIdx.x; i < count; i += 4 * P)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   :: "r"(d + 4 * i), "l"(src + i));
-  } else {
-    for (int i = threadIdx.x; i < count; i += P)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                   :: "r"(d + 4 * i), "l"(src + i));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// One pair of the forward's chain on one pixel, branch-free. A pair that
-// is not kept (guard, threshold, or past the batch) comes with alpha 0,
-// which leaves t and acc as they are bit for bit: t * (1 - 0) = t and
-// acc + 0 * t = acc. t is multiplied by every pair's 1 - alpha, stopped
-// or not: t only falls, so once a pair takes it below 1e-4 (the stop)
-// every later pair finds it below too and adds 0 * t. So the pairs
-// before the stop add what a serial loop with a break adds, bit for bit;
-// t < 1e-4 is "done"; and the loop-carried path is one multiply on t and
-// one multiply-add on acc.
-__device__ __forceinline__ void chain_step(float a, float& t, float& acc) {
-  const float t_inc = t * (1.0f - a);
-  acc = fmaf(t_inc >= TRANSMITTANCE_EPS ? a : 0.0f, t, acc);
-  t = t_inc;
-}
 
 // The forward walks its run in batches of FWD_BATCH pairs, double buffered
 // as the backward's; within a batch, the t-free terms of FWD_GROUP pairs
@@ -266,22 +196,8 @@ segpair_bwd_kernel(const float* __restrict__ feats,
   for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
   const float g = gt[static_cast<size_t>(fr) * P + px];
 
-  // B fragments of this warp's pixels, B[k][n] = basis[n][32 warp + k],
-  // zero for n = 6, 7, each split as b_hi + b_lo
   unsigned bhi[KSTEPS][2], blo[KSTEPS][2];
-  bool b_exact = true;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v = grp < NJ
-          ? basis[grp * P + 32 * warp + 8 * ks + tig + 4 * h] : 0.0f;
-      bhi[ks][h] = to_tf32(v);
-      blo[ks][h] = to_tf32(v - __uint_as_float(bhi[ks][h]));
-      b_exact &= blo[ks][h] == 0u;
-    }
-  }
-  b_exact = __all_sync(FULL_MASK, b_exact);
+  const bool b_exact = basis_fragments(basis, warp, grp, tig, bhi, blo);
   float* dw = dt[warp];
   const bool vec16 = (reinterpret_cast<size_t>(feats) & 15) == 0;
 
@@ -343,23 +259,8 @@ segpair_bwd_kernel(const float* __restrict__ feats,
         __syncwarp();
         // this warp's partial of the 16 pairs: D [16 x 32] @ B [32 x 8]
         float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (__any_sync(FULL_MASK, any)) {
-#pragma unroll
-          for (int ks = 0; ks < KSTEPS; ++ks) {
-            const float* d0 = dw + grp * DSTRIDE + 8 * ks + tig;
-            const float av[4] = {d0[0], d0[8 * DSTRIDE], d0[4],
-                                 d0[8 * DSTRIDE + 4]};
-            unsigned hi[4], lo[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              hi[i] = to_tf32(av[i]);
-              lo[i] = to_tf32(av[i] - __uint_as_float(hi[i]));
-            }
-            mma_tf32(c, lo, bhi[ks][0], bhi[ks][1]);
-            if (!b_exact) mma_tf32(c, hi, blo[ks][0], blo[ks][1]);
-            mma_tf32(c, hi, bhi[ks][0], bhi[ks][1]);
-          }
-        }
+        if (__any_sync(FULL_MASK, any))
+          tile_product(dw, grp, tig, bhi, blo, b_exact, c);
         __syncwarp();   // D is read before the next 16 pairs overwrite it
         if (tig < NJ / 2) {   // columns 2 tig, 2 tig + 1 of rows grp, grp + 8
           float* pw = part[warp] + (m0 + grp) * NJ + 2 * tig;

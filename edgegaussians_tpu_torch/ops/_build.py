@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
 first use with ``nvcc`` into ``build/torch_kernels/<name>-<hash>.so`` at the
 repository root (``build/`` is git-ignored), then loaded with ``ctypes``.
-The hash covers the source and the compiler flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. No PyTorch headers are
+The hash covers the source, the headers of ``csrc/`` it includes (``#include
+"..."``, followed into nested includes) and the compiler flags, so an edited
+source or header rebuilds every library that uses it, and an unchanged one
+is loaded as it is. No PyTorch headers are
 involved, which keeps a build to seconds.
 
 The wrappers import this module when they are imported, which compiles
@@ -20,11 +22,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -45,10 +48,31 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the headers it includes with ``#include
+    "..."`` (each resolved beside the file that names it, as nvcc does),
+    each once, in the order first named."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

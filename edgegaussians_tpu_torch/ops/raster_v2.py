@@ -17,8 +17,9 @@ Same rules as the seg compositor: sigma guard, 1/255 skip, 0.999 clamp,
 stop below transmittance 1e-4. Where a pixel saturates, ``t_out`` is below
 1e-4 but its value depends on the implementation (the TPU kernel
 multiplies through the rest of a 128-slot chunk, the plain version here
-through all K, the Hopper kernel stops at the first dropped slot); a
-following segment then keeps nothing either way.
+through all K, the Hopper kernel on past the stop until the pixel's warp
+or the whole CTA leaves the row); a following segment then keeps nothing
+either way.
 
 Two implementations of each direction, chosen by the device of the input:
 
@@ -75,13 +76,18 @@ def _check_inputs(feats, counts, basis, **rows):
     return T, K
 
 
-# feats, counts, basis, three [T,256] planes; rows, K; stream
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p)
+# feats, counts, basis, then the [T,256] planes (fwd: t_in, img, t_out;
+# bwd: g, total, t_in) and the output; rows, K; stream
+_ARGTYPES = {
+    "raster_v2_fwd": (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p),
+    "raster_v2_bwd": (ctypes.c_void_p,) * 7 + (ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p),
+}
 
 
 def _launch(name, args):
-    _build.launch("raster_v2", name, _ARGTYPES, args)
+    _build.launch("raster_v2", name, _ARGTYPES[name], args)
     launch_counts[name] += 1
 
 
@@ -122,17 +128,19 @@ def composite_bwd_seg(feats: torch.Tensor, counts: torch.Tensor,
     """Segment VJP w.r.t. feats: upstream g [T,256], the segment's
     entering transmittance t_in (None: 1) and the GLOBAL per-tile total
     [T,256] of all segments -> dfeats [T,K,8] (zero on every slot the walk
-    does not reach, and in columns 6-7). CPU tensors take
+    does not reach, and in columns 6-7). The kernel folds the cotangent
+    ``g * (1 - total)`` itself: one launch a call. CPU tensors take
     :func:`composite_bwd_seg_ref`."""
     if _device_kind(feats) == "cpu":
         return composite_bwd_seg_ref(feats, counts, basis, g, t_in, total)
-    gt2 = (g * (1.0 - total)).contiguous()
-    T, K = _check_inputs(feats, counts, basis, gt2=gt2, t_in=t_in)
+    g, total = g.contiguous(), total.contiguous()
+    T, K = _check_inputs(feats, counts, basis, g=g, total=total, t_in=t_in)
     dfeats = torch.empty_like(feats)
     stream = _build.stream(feats.device)
     _launch("raster_v2_bwd",
             (feats.data_ptr(), counts.data_ptr(), basis.data_ptr(),
-             gt2.data_ptr(), _ptr(t_in), dfeats.data_ptr(), T, K, stream))
+             g.data_ptr(), total.data_ptr(), _ptr(t_in), dfeats.data_ptr(),
+             T, K, stream))
     return dfeats
 
 

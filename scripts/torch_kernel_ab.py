@@ -1,29 +1,44 @@
-"""Time the seg kernels and the kNN kernel of several trees of the port in
-turns on one card: an A/B in one call.
+"""Time the compositor kernels and the kNN kernel of several trees of the
+port in turns on one card: an A/B in one call.
 
     python3 scripts/torch_kernel_ab.py --trees OLD NEW NEW OLD
 
 Each turn runs in its own process from the tree it names: that tree's
 ``edgegaussians_tpu_torch`` builds its kernels (into the tree's own
 ``build/torch_kernels/``) and is timed on the same inputs, made by this
-repository's ``chip_smoke.py`` helpers: the 5 fixture cameras at the seg
-recipe's settings (both seg kernels, ms per camera, and one CTA of each
-alone on each camera's longest run, device time of calls queued behind a
-sleeping kernel), the fixture's 12740 means padded to 16384 rows (k = 6,
-11, 15), the 131072-row cloud (k = 6), and the onehot probe on the
-script's run beside ``onehot @ c`` (both also by their device time from
-torch.profiler). CUDA events, median of 5 blocks. Each turn prints one
-JSON line with its times and the compiler's register and shared-memory
-report of the three sources; the run ends with a table of the turns and
-the card's name and power limit. A tree is a checkout of the repository,
-e.g. the parent commit unpacked with ``git archive`` into a git-ignored
-directory.
-Needs a CUDA GPU.
+repository's ``chip_smoke.py`` helpers:
+
+- the 5 fixture cameras at the seg recipe's settings: both seg kernels,
+  ms per camera, one CTA of each alone on each camera's longest run, and
+  a digest of their outputs (equal between trees whose seg kernels
+  compute the same bits);
+- the same cameras at the recipe's dense two-level settings: both dense
+  kernels, ms per camera over both levels and per level, one CTA of each
+  alone on each camera's longest row of each level, level 1's backward
+  with every pixel entering done (its zero fill alone), one CTA of each
+  alone on faint level-2 rows of 64 and 640 slots that every pixel walks
+  (their difference over 576 slots is what a slot adds), and digests;
+- the fixture's 12740 means padded to 16384 rows (k = 6, 11, 15) and the
+  131072-row cloud (k = 6);
+- the onehot probe on the script's run beside ``onehot @ c`` (both also
+  by their device time from torch.profiler).
+
+CUDA events, median of 5 blocks; the ``*_device_ms`` and ``*_alone_ms``
+keys are device time of calls queued behind a sleeping kernel
+(chip_smoke.py's queued_ms), which the wrappers' ~20 us of host work a
+call does not pace. Each turn prints one JSON line with its times and the
+compiler's register and shared-memory report of the four sources; the
+run ends with a table of the turns and the card's name and power limit.
+A tree is a checkout of the repository, e.g. the parent commit unpacked
+with ``git archive`` into a git-ignored directory, or a directory holding
+a copy of ``edgegaussians_tpu_torch/`` (a variant of a kernel). Needs a
+CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -32,6 +47,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONEHOT_CASE = "P3 onehot-matmul"
+# one CTA alone on faint level-2 rows of these lengths
+DENSE_CHAIN_SLOTS = (64, 640)
 
 
 def turn(root: str) -> dict:
@@ -61,6 +78,12 @@ def turn(root: str) -> dict:
         out["segpair_bwd_ms"] = cs.cuda_ms(lambda: [
             segpair.segpair_bwd(c["feats"], c["s_f"], basis, c["gt"])
             for c in cases], 20) / len(cases)
+        out["segpair_fwd_device_ms"] = cs.queued_ms(lambda: [
+            segpair.segpair_fwd(c["feats"], c["s_f"], basis)
+            for c in cases], 20) / len(cases)
+        out["segpair_bwd_device_ms"] = cs.queued_ms(lambda: [
+            segpair.segpair_bwd(c["feats"], c["s_f"], basis, c["gt"])
+            for c in cases], 20) / len(cases)
         pts, mask, _ = cs.knn_inputs(device)
         for k in cs.KNN_KS:
             out[f"knn_{pts.shape[0]}_k{k}_ms"] = cs.cuda_ms(
@@ -72,6 +95,12 @@ def turn(root: str) -> dict:
         for k in ("fwd", "bwd"):
             out[f"segpair_{k}_longest_run_alone_ms"] = cs.own_run_ms(
                 k, longest, basis)
+        out["segpair_digest"] = digest(
+            [segpair.segpair_fwd(c["feats"], c["s_f"], basis) for c in cases]
+            + [segpair.segpair_bwd(c["feats"], c["s_f"], basis,
+                                   c["gt"])[:int(c["s_f"][-1])]
+               for c in cases])
+        out.update(dense_turn(cs, device))
         t = probes.case_tensors(ONEHOT_CASE, device)
         lib = cs.probe_library(ONEHOT_CASE, t)
         out["probe_onehot_ms"] = cs.cuda_ms(
@@ -83,10 +112,76 @@ def turn(root: str) -> dict:
         lambda: probes.probe_onehot(t["r8"], t["c"]),
         "probe_onehot_kernel")[0]
     out["probe_onehot_library_device_ms"] = cs.profiled_device(lib, "")[0]
-    for name in ("segpair", "knn", "lab_probes"):
+    for name in ("segpair", "raster_v2", "knn", "lab_probes"):
         log = str(_build.library_path(name)) + ".log"
         out[f"{name}_ptxas"] = [ln.strip() for ln in open(log)
                                 if "registers" in ln or "Compiling" in ln]
+    return out
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (16 hex digits)."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dense_turn(cs, device) -> dict:
+    """The dense kernels on the fixture's two-level frames (chip_smoke.py's
+    phase 2 dense inputs): ms per camera over both levels and per level,
+    level 1's backward zero fill alone (fill_args), one CTA alone on each
+    camera's longest row of each level and on faint level-2 rows of
+    DENSE_CHAIN_SLOTS, and a digest of each kernel's outputs."""
+    import torch
+    from edgegaussians_tpu_torch.ops import tiles
+    cases = cs.dense_cases(device)
+    basis = tiles.pixel_basis(16, device=device)
+    cs.dense_timing_inputs(cases, basis)
+    out = {}
+    for k in ("fwd", "bwd"):
+        def calls(levels):
+            return lambda: [cs.dense_call(k, cs.dense_level_args(c, lv),
+                                          basis)
+                            for c in cases for lv in levels]
+        out[f"raster_v2_{k}_ms"] = cs.cuda_ms(calls((1, 2)), 20) / len(cases)
+        out[f"raster_v2_{k}_device_ms"] = cs.queued_ms(
+            calls((1, 2)), 20) / len(cases)
+        for lv in (1, 2):
+            out[f"raster_v2_{k}_level{lv}_device_ms"] = cs.queued_ms(
+                calls((lv,)), 20) / len(cases)
+        out[f"raster_v2_{k}_digest"] = digest(
+            x for c in cases for lv in (1, 2)
+            for x in cs.as_tuple(cs.dense_call(
+                k, cs.dense_level_args(c, lv), basis)))
+    fill = fill_args(cs, cases)
+    out["raster_v2_bwd_level1_fill_device_ms"] = cs.queued_ms(
+        lambda: [cs.dense_call("bwd", a, basis) for a in fill], 20) / len(
+            cases)
+    for lv in (1, 2):
+        rows = cs.longest_rows(cases, lv)
+        for k in ("fwd", "bwd"):
+            out[f"raster_v2_{k}_level{lv}_longest_row_alone_ms"] = [
+                cs.queued_ms(lambda: cs.dense_call(k, a, basis), 20)
+                for a in rows]
+    for s in DENSE_CHAIN_SLOTS:
+        args = cs.dense_chain_case(s, device)
+        for k in ("fwd", "bwd"):
+            out[f"raster_v2_{k}_faint_{s}_alone_ms"] = cs.queued_ms(
+                lambda: cs.dense_call(k, args, basis), 20)
+    torch.cuda.synchronize()
+    return out
+
+
+def fill_args(cs, cases) -> list:
+    """Per camera, level 1's dense_level_args with every pixel entering
+    done (t_in 0): no row walks, the backward writes every row as zeros,
+    so its time is the fill's alone."""
+    import torch
+    out = []
+    for c in cases:
+        feats, counts, _, g, total = cs.dense_level_args(c, 1)
+        out.append((feats, counts, torch.zeros_like(g), g, total))
     return out
 
 

@@ -6,6 +6,9 @@ CPU (no nvcc, no card).
   later call that names other ``argtypes``; a nonzero return raises as a
   CUDA error. Driven through libc's ``abs``, which returns its argument's
   magnitude where a kernel entry returns ``cudaGetLastError()``.
+- ``_build.library_path`` hashes the headers a source includes: editing
+  a header moves the library of every source that includes it (directly
+  or through another header) and of no other, in a temporary ``CSRC``.
 - ``probe_dyn_write_ref`` / ``probe_dyn_read_ref`` (lab/probes.py) on
   random windows (overlapping, out of range, at offsets that are not
   multiples of 8, up to 8 of them) against a NumPy oracle in the
@@ -15,6 +18,7 @@ CPU (no nvcc, no card).
 """
 
 import ctypes
+import shutil
 
 import numpy as np
 import pytest
@@ -69,6 +73,46 @@ def test_launch_raises_on_other_argtypes(libc):
     # the first prototype stays bound
     _build.launch("libc", "abs", (ctypes.c_int,), (0,))
     assert libc == ["libc"]
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path,
+                                                            monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "inner.cuh").write_text("constexpr int A = 1;\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "direct.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "inner.cuh"\nint f();\n')
+    (tmp_path / "nested.cu").write_text(
+        '  #  include "outer.cuh"\n#include "inner.cuh"\nint g();\n')
+    (tmp_path / "alone.cu").write_text("int h();\n")
+    names = ("direct", "nested", "alone")
+    assert [p.name for p in _build.sources("nested")] == [
+        "nested.cu", "outer.cuh", "inner.cuh"]
+    assert [p.name for p in _build.sources("alone")] == ["alone.cu"]
+    before = {n: _build.library_path(n) for n in names}
+    assert before == {n: _build.library_path(n) for n in names}
+    (tmp_path / "inner.cuh").write_text("constexpr int A = 2;\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["direct"] != before["direct"]
+    assert after["nested"] != before["nested"]
+    assert after["alone"] == before["alone"]
+    assert all(after[n].name.startswith(f"{n}-") for n in names)
+
+
+def test_compositor_header_rebuilds_both_compositor_libraries(tmp_path,
+                                                              monkeypatch):
+    """The repository's own sources: csrc/segpair.cu and csrc/raster_v2.cu
+    share csrc/compositor.cuh; an edit of it moves both libraries and no
+    other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    before = {n: _build.library_path(n) for n in names}
+    with open(csrc / "compositor.cuh", "a") as f:
+        f.write("// edited\n")
+    moved = {n for n in names if _build.library_path(n) != before[n]}
+    assert moved == {"raster_v2", "segpair"}
 
 
 def test_wrappers_bind_constant_prototypes():

@@ -12,9 +12,9 @@ without the JAX-side conftest:
 Tolerances: image atol 1e-5 (both sides take the same f32 steps; only
 the order of the log-alpha sum and of the transmittance products
 differs); per-pair and per-slot dfeats 1e-5 of the plain version's
-max-abs (the seg backward sums its 256 pixels as 3xTF32 tensor-core
-products and 8 warp partials, a dense kernel as a warp shuffle tree, the
-plain versions as an f32 matmul); the
+max-abs (the seg and dense backwards sum their 256 pixels as 3xTF32
+tensor-core products and 8 warp partials, the plain versions as an f32
+matmul); the
 dense kernels' t_out where the plain value is >= 1e-4 rtol 1e-5, and
 below 1e-4 on both sides elsewhere (its value there depends on the
 implementation, ops/raster_v2.py); whole-rasterizer gradients atol 3e-4,
@@ -42,7 +42,13 @@ per call; the owner-computes onehot kernel bit for bit the in-order sum
 of its rows (the one-hot product adds exact zeros beside the same terms)
 on random ids, one device kernel per call. The seg forward: image atol
 1e-5 on runs around its 16-pair groups and 128-pair batches and on stops
-at their edges, the same bits from two launches.
+at their edges, the same bits from two launches. The dense kernels at K =
+16, 48, 128 and 640, with and without t_in: the image, t_out and dfeats
+gates above on counts around their groups and batches, past K and
+negative, on stops at group and batch edges and on rows saturated on
+entry; exact zeros, t_out = t_in and the same bits from two launches
+where the kernels' contract says so. Every one-kernel-a-call check
+counts the host's launch records (_check_one_kernel_per_call).
 """
 
 import numpy as np
@@ -886,27 +892,47 @@ def test_lab_window_probes_on_random_windows(device, probe, seed):
         assert torch.equal(got, plain()), (rows, cols, win, offs)
 
 
-@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
-def test_lab_window_probes_launch_one_kernel_per_call(device, probe):
-    """torch.profiler sees one device kernel per call, the probe's, and
-    no fill or copy; each call adds one to the launch count."""
+def _check_one_kernel_per_call(call, counts, key, kernel, calls=10):
+    """``calls`` calls of ``call`` in one torch.profiler window, read once:
+    each adds one to ``counts[key]``; the host side of the window holds
+    exactly one runtime launch record a call and no memset or memcpy
+    record; every device record that comes through is ``kernel``. The
+    launches are counted on the host's records, not the device's: on an
+    H100 the profiler loses a window's device records now and then, for
+    tens of milliseconds at a time (0 or 9 of 10 in windows next to each
+    other, kernels stamped before their launches), while the host's
+    launch records were all there in every one of 216 windows read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    kern, _, _ = _window_call(probe, device, [40, 200])
-    kern()
+    call()
     torch.cuda.synchronize()
-    key = f"probe_{probe}"
-    before = probes.launch_counts[key]
+    before = counts[key]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            kern()
+        for _ in range(calls):
+            call()
         torch.cuda.synchronize()
-    assert probes.launch_counts[key] == before + 10
+    assert counts[key] == before + calls
+    on_host = [e.name for e in prof.events()
+               if e.device_type != DeviceType.CUDA]
+    launches = [n for n in on_host if "LaunchKernel" in n]
+    moves = [n for n in on_host if "Memset" in n or "Memcpy" in n]
+    assert len(launches) == calls and not moves, (launches, moves)
     on_device = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
-    assert len(on_device) == 10, on_device
-    assert all(f"{key}_kernel" in name for name in on_device), on_device
+    assert len(on_device) <= calls, on_device
+    assert all(kernel in name for name in on_device), on_device
+
+
+@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+def test_lab_window_probes_launch_one_kernel_per_call(device, probe):
+    """Each call launches one kernel, the probe's, and no fill or copy,
+    and adds one to the launch count (counted on the host's launch
+    records: _check_one_kernel_per_call)."""
+    kern, _, _ = _window_call(probe, device, [40, 200])
+    key = f"probe_{probe}"
+    _check_one_kernel_per_call(kern, probes.launch_counts, key,
+                               f"{key}_kernel")
 
 
 def test_lab_window_probes_check_inputs(device):
@@ -1238,34 +1264,212 @@ def test_onehot_kernel_writes_every_element(device, monkeypatch):
 
 
 def test_onehot_kernel_launches_one_kernel_per_call(device):
-    """Each call launches one kernel, the probe's, and no fill or copy;
-    each call adds one to the launch count. The count of launches is read
-    from the host side of the profiler's window (the runtime's launch
-    records: one a call, nothing else launched) and must be exact; the
-    device records that come through must all be the probe's kernel. On
-    an H100 the device records of a window are now and then lost
-    for tens of milliseconds at a time (0 or 9 of 10 in several windows in
-    a row, with kernels stamped before their launches), while the host's
-    launch records were all there in every window read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Each call launches one kernel, the probe's, and no fill or copy,
+    and adds one to the launch count (counted on the host's launch
+    records: _check_one_kernel_per_call)."""
     t = probes.case_tensors("P3 onehot-matmul", device)
     key = "probe_onehot"
-    probes.probe_onehot(t["r8"], t["c"])
+    _check_one_kernel_per_call(lambda: probes.probe_onehot(t["r8"], t["c"]),
+                               probes.launch_counts, key, f"{key}_kernel")
+
+
+# -- the dense kernels' batches, t-free groups, stops and entries ------------
+
+DENSE_FWD_BATCH = 128   # slots per staged batch of csrc/raster_v2.cu's forward
+DENSE_BWD_BATCH = 64    # ... and of its backward
+DENSE_GROUP = 16        # slots whose t-free terms both compute side by side
+# a row for each count: around the groups and both batches, up to level 2's
+# K, past every K, negative
+DENSE_COUNTS = [0, 1, DENSE_GROUP - 1, DENSE_GROUP, DENSE_GROUP + 1,
+                DENSE_BWD_BATCH - 1, DENSE_BWD_BATCH, DENSE_BWD_BATCH + 1,
+                DENSE_FWD_BATCH - 1, DENSE_FWD_BATCH, DENSE_FWD_BATCH + 1,
+                255, 256, 257, 640, 1000, -3]
+# a full row for each stop (k, pixel, alpha) with k < K: two slots of that
+# alpha at k - 1 and k on the pixel (every pixel for None), so that it stops
+# exactly at slot k; 0.9999 is clamped to 0.999
+DENSE_STOPS = [(DENSE_GROUP - 1, STOP_PIXEL, 0.995),
+               (DENSE_GROUP, STOP_PIXEL, 0.995),
+               (3 * DENSE_GROUP, STOP_PIXEL, 0.995),
+               (DENSE_BWD_BATCH - 1, STOP_PIXEL, 0.995),
+               (DENSE_BWD_BATCH, STOP_PIXEL, 0.995),
+               (DENSE_FWD_BATCH - 1, STOP_PIXEL, 0.995),
+               (DENSE_FWD_BATCH, STOP_PIXEL, 0.995),
+               (256, STOP_PIXEL, 0.995),
+               (DENSE_BWD_BATCH, None, 0.995),
+               (DENSE_FWD_BATCH + DENSE_GROUP, None, 0.995),
+               (70, None, 0.9999)]
+DENSE_KS = [16, 48, 128, 640]
+
+
+def _dense_frame(k, seed=0):
+    """(feats [T,K,8], counts [T] int32, t_in [T,256], g, total, rows):
+    broad, faint Gaussians in tile-local coordinates (as
+    _seg_fwd_features) in every slot, past the count too (the kernels must
+    not read there); a row per DENSE_COUNTS entry, a full row per stop of
+    DENSE_STOPS below K, then three full rows whose t_in is below 1e-4 on
+    every pixel (5e-5; 0; just below 1e-4) and one below it on half its
+    pixels. Other rows enter at t_in in [0.5, 1). ``rows`` maps "stops"
+    to [(row, k, pixel)] and "saturated" to the first three extra rows."""
+    stops = [(kk, px, a) for kk, px, a in DENSE_STOPS if kk < k]
+    counts = DENSE_COUNTS + [k] * (len(stops) + 4)
+    t = len(counts)
+    r = np.random.default_rng(seed)
+    src = np.zeros((t, k, 8), np.float32)
+    src[..., 0] = r.uniform(0.004, 0.05, (t, k))
+    src[..., 2] = r.uniform(0.004, 0.05, (t, k))
+    src[..., 1] = r.uniform(-0.5, 0.5, (t, k)) * np.sqrt(
+        src[..., 0] * src[..., 2])
+    src[..., 3:5] = r.uniform(-6.0, 22.0, (t, k, 2))
+    src[..., 5] = np.log(r.uniform(0.004, 0.02, (t, k)))
+    src[..., 6] = 1.0
+    stop_rows = []
+    for i, (kk, px, alpha) in enumerate(stops):
+        row = len(DENSE_COUNTS) + i
+        peak = [0.0, 0.0, 0.0, 0.0, 0.0] if px is None else \
+            [2.0, 0.0, 2.0, 3.5, 7.5]
+        src[row, kk - 1:kk + 1, :6] = peak + [np.log(alpha)]
+        stop_rows.append((row, kk, px))
+    t_in = r.uniform(0.5, 1.0, (t, 256)).astype(np.float32)
+    sat = len(DENSE_COUNTS) + len(stops)
+    t_in[sat] = 5e-5
+    t_in[sat + 1] = 0.0
+    t_in[sat + 2] = np.float32(1e-4) * (1 - 2 ** -20)
+    t_in[sat + 3, 128:] = 5e-5
+    g = r.uniform(-1, 1, (t, 256)).astype(np.float32)
+    total = r.uniform(0, 1, (t, 256)).astype(np.float32)
+    zero = torch.zeros(t * k)
+    feats = segpair.build_pair_features(
+        torch.from_numpy(src.reshape(-1, 8)), zero, zero).reshape(t, k, 8)
+    return (feats.contiguous(), torch.tensor(counts, dtype=torch.int32),
+            torch.from_numpy(t_in), torch.from_numpy(g),
+            torch.from_numpy(total),
+            {"stops": stop_rows, "saturated": [sat, sat + 1, sat + 2]})
+
+
+def _dense_both(feats, counts, basis, t_in, g, total):
+    """(img, t_out, dfeats) of the dense kernels."""
+    img, t_out = raster_v2.composite_fwd_seg(feats, counts, basis, t_in)
+    d = raster_v2.composite_bwd_seg(feats, counts, basis, g, t_in, total)
+    return img, t_out, d
+
+
+def _check_dense(got, feats, counts, basis, t_in, g, total):
+    """The dense kernels' (img, t_out, dfeats) against the plain versions:
+    image atol 1e-5, t_out rtol 1e-5 where the plain value is >= 1e-4 and
+    below 1e-4 where it is, dfeats 1e-5 of max-abs; exact zeros in
+    columns 6-7 and past each row's count."""
+    img, t_out, d = got
+    img_r, tout_r = raster_v2.composite_fwd_seg_ref(feats, counts, basis,
+                                                    t_in)
+    torch.testing.assert_close(img, img_r, rtol=0, atol=1e-5)
+    live = tout_r >= 1e-4
+    torch.testing.assert_close(t_out[live], tout_r[live], rtol=1e-5,
+                               atol=1e-7)
+    assert bool((t_out[~live] < 1e-4).all())
+    d_r = raster_v2.composite_bwd_seg_ref(feats, counts, basis, g, t_in,
+                                          total)
+    scale = float(d_r.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(d, d_r, rtol=0, atol=1e-5 * scale)
+    past = (torch.arange(feats.shape[1], device=feats.device)[None, :]
+            >= counts[:, None])
+    assert bool((d[past] == 0).all()) and bool((d[..., 6:] == 0).all())
+
+
+@pytest.mark.parametrize("with_t_in", [False, True])
+@pytest.mark.parametrize("k", DENSE_KS)
+def test_raster_v2_kernels_on_counts_stops_and_entries(device, k,
+                                                       with_t_in):
+    """Both dense kernels against their plain versions at K = 16, 48, 128
+    and 640: counts around the 16-slot groups and the 64- and 128-slot
+    batches, above K and negative; a pixel, or every pixel, stopping on
+    the last or first slot of a group or of a batch, or inside a batch
+    (checked on the plain version's transmittance); with t_in, rows whose
+    every pixel enters below 1e-4 (the image 0, t_out = t_in, dfeats 0)
+    and a row where half the pixels do. Rows with no live slot write a
+    zero image and t_out = t_in; every slot after a stop of every pixel
+    gets exact zero dfeats. Two launches give the same bits."""
+    feats, counts, t_in, g, total, rows = (
+        x.to(device) if torch.is_tensor(x) else x for x in _dense_frame(k))
+    if not with_t_in:
+        t_in = None
+    basis = tiles.pixel_basis(16, device=device)
+    got = _dense_both(feats, counts, basis, t_in, g, total)
+    again = _dense_both(feats, counts, basis, t_in, g, total)
     torch.cuda.synchronize()
-    before = probes.launch_counts[key]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            probes.probe_onehot(t["r8"], t["c"])
-        torch.cuda.synchronize()
-    assert probes.launch_counts[key] == before + 10
-    on_host = [e.name for e in prof.events()
-               if e.device_type != DeviceType.CUDA]
-    launches = [n for n in on_host if "LaunchKernel" in n]
-    moves = [n for n in on_host if "Memset" in n or "Memcpy" in n]
-    assert len(launches) == 10 and not moves, (launches, moves)
-    on_device = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-    assert len(on_device) <= 10, on_device
-    assert all(f"{key}_kernel" in name for name in on_device), on_device
+    _check_dense(got, feats, counts, basis, t_in, g, total)
+    assert all(map(torch.equal, got, again))
+    img, t_out, d = got
+    entered = torch.ones_like(img) if t_in is None else t_in
+    empty = counts <= 0
+    assert bool((img[empty] == 0).all())
+    assert torch.equal(t_out[empty], entered[empty])
+    if t_in is not None:
+        sat = rows["saturated"]
+        assert bool((img[sat] == 0).all()) and bool((d[sat] == 0).all())
+        assert torch.equal(t_out[sat], t_in[sat])
+    t0 = entered if t_in is None else t_in
+    _, _, t_inc = raster_v2._chunk_alpha(feats, counts, basis, t0)
+    keep = t_inc >= 1e-4
+    slot = torch.arange(k, device=device)
+    for row, kk, pixel in rows["stops"]:
+        pixels = [pixel] if pixel is not None else list(range(256))
+        for p in pixels:
+            stopped = ~keep[row, :, p] & (slot < counts[row])
+            assert int(stopped.float().argmax()) == kk and bool(stopped[kk])
+        if pixel is None:
+            assert bool((d[row, kk:] == 0).all())
+
+
+@pytest.mark.parametrize("k", [128, 640])
+def test_raster_v2_kernels_on_a_misaligned_feats(device, k):
+    """feats starting 4 bytes past a 16-byte boundary: both kernels take
+    the 4-byte staging path and agree with their plain versions and with
+    the aligned launch bit for bit."""
+    feats, counts, t_in, g, total, _ = (
+        x.to(device) if torch.is_tensor(x) else x for x in _dense_frame(k, 1))
+    basis = tiles.pixel_basis(16, device=device)
+    odd = _misaligned(feats)
+    got = _dense_both(odd, counts, basis, t_in, g, total)
+    torch.cuda.synchronize()
+    _check_dense(got, odd, counts, basis, t_in, g, total)
+    assert all(map(torch.equal, got,
+                   _dense_both(feats, counts, basis, t_in, g, total)))
+
+
+@pytest.mark.parametrize("k", [128, 640])
+def test_raster_v2_kernels_write_every_element(device, monkeypatch, k):
+    """torch.empty and torch.empty_like returning NaNs: every element of
+    img, t_out and dfeats is still written (the zeros of rows and slots the
+    walk never reaches included)."""
+    feats, counts, t_in, g, total, _ = (
+        x.to(device) if torch.is_tensor(x) else x for x in _dense_frame(k, 2))
+    basis = tiles.pixel_basis(16, device=device)
+    for name in ("empty", "empty_like"):
+        alloc = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _alloc=alloc, **kw:
+                            _alloc(*a, **kw).fill_(float("nan")))
+    got = _dense_both(feats, counts, basis, t_in, g, total)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _check_dense(got, feats, counts, basis, t_in, g, total)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_raster_v2_wrappers_launch_one_kernel_per_call(device, kernel):
+    """Each call of a dense wrapper launches its kernel and nothing else:
+    the backward folds the cotangent g * (1 - total) in the kernel
+    (counted on the host's launch records: _check_one_kernel_per_call)."""
+    feats, counts, t_in, g, total, _ = (
+        x.to(device) if torch.is_tensor(x) else x for x in _dense_frame(48))
+    basis = tiles.pixel_basis(16, device=device)
+    if kernel == "fwd":
+        def call():
+            raster_v2.composite_fwd_seg(feats, counts, basis, t_in)
+    else:
+        def call():
+            raster_v2.composite_bwd_seg(feats, counts, basis, g, t_in, total)
+    key = f"raster_v2_{kernel}"
+    _check_one_kernel_per_call(call, raster_v2.launch_counts, key,
+                               f"{key}_kernel")
