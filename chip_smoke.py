@@ -44,8 +44,10 @@ Phases, in order; any failure exits non-zero:
    with block_tiles 8 (brick-alignment pads present), forward and
    backward.
    2 (v1): the v1 log-space kernels against theirs on the cameras'
-   single-level frame at capacity 768 (every tile walks all 768 slots),
-   forward and backward.
+   single-level frame at capacity 768, forward and backward, two launches
+   bit-equal; per camera the slots the kernels' find keeps (those without
+   the -1e30 marker) against the marked ones it skips, and the longest
+   row's live count.
    2b: the whole rasterizer on the GPU against the CPU path on a small
    scene, through the seg, two-level and single-level dispatch, the v4
    pair path, the v1 single-level path and the pair-prefix two-level
@@ -1072,17 +1074,28 @@ def phase_v1_kernels(device):
             d_k = raster_v1.composite_bwd(cs["feats"], basis, cs["g"], img_r)
             d_r = raster_v1.composite_bwd_ref(cs["feats"], basis, cs["g"],
                                               img_r)
+            same = (torch.equal(img_k, raster_v1.composite_fwd(cs["feats"],
+                                                               basis))
+                    and torch.equal(d_k, raster_v1.composite_bwd(
+                        cs["feats"], basis, cs["g"], img_r)))
             torch.cuda.synchronize()
             work += v1_work(cs, basis)
+        if not same:
+            raise AssertionError(f"raster_v1: camera {c}: two launches "
+                                 "differ")
         e_img = (img_k - img_r).abs().max().item()
         e_dfe = (d_k - d_r).abs().max().item()
         err["raster_v1_fwd"] = max(err["raster_v1_fwd"], e_img)
         err["raster_v1_bwd"] = max(err["raster_v1_bwd"], e_dfe)
         rel = rel_err(d_k, d_r, f"camera {c}: dfeats")
-        log(f"camera {c}: live slots={int(cs['bins'].valid.sum())} of "
-            f"{cs['feats'].shape[0] * cs['feats'].shape[1]} "
-            f"max_count={int(cs['bins'].counts.max())} img_err={e_img:.3g} "
-            f"dfeats_err={e_dfe:.3g} dfeats_rel={rel:.3g}")
+        live = raster_v1.live_slots(cs["feats"])
+        log(f"camera {c}: the kernels' find keeps {int(live.sum())} slots "
+            f"and skips {int((~live).sum())} marked ones (valid slots of "
+            f"the binning: {int(cs['bins'].valid.sum())}); longest row "
+            f"{int(live.sum(1).argmax())} with {int(live.sum(1).max())} "
+            f"live slots; max_count={int(cs['bins'].counts.max())} "
+            f"img_err={e_img:.3g} dfeats_err={e_dfe:.3g} "
+            f"dfeats_rel={rel:.3g}")
         check_image(e_img, f"camera {c}")
 
     def over_cases(fn):

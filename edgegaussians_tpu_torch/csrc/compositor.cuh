@@ -1,7 +1,8 @@
 // Device helpers shared by the compositor kernels of csrc/segpair.cu (the
-// seg pair runs) and csrc/raster_v2.cu (the dense slot frames).
+// seg pair runs), csrc/raster_v2.cu (the dense slot frames) and
+// csrc/raster_v1.cu (the v1 log-space frame).
 //
-// Both walk one 16x16 tile per CTA, one thread per pixel, over depth-ordered
+// All three walk one 16x16 tile per CTA, one thread per pixel, over depth-ordered
 // features f[0:8] (f32) with the gsplat rules:
 //   log a = sum_{j<6} f_j * basis_j(px)          (full f32 FMAs)
 //   ok = log a <= f_6 + SIGMA_GUARD_EPS;  a = exp(log a);  ok &= a >= 1/255
@@ -108,6 +109,18 @@ __device__ __forceinline__ void tile_product(const float* dw, int grp, int tig,
     if (!b_exact) mma_tf32(c, hi, blo[ks][0], blo[ks][1]);
     mma_tf32(c, hi, bhi[ks][0], bhi[ks][1]);
   }
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// Zero `slots` slots of NF floats from `dst`, the start of a slot of a
+// 16-byte aligned dfeats (so 16-byte aligned itself), in 16-byte stores.
+__device__ __forceinline__ void zero_slots(float* dst, int slots) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < slots * (NF / 4); i += P)
+    d[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
 // Start copying `count` floats (a multiple of 4) from global to shared

@@ -70,18 +70,6 @@ constexpr int FWD_BATCH = 128;   // slots staged per pass (2 x 4 KB)
 constexpr int BWD_BATCH = 64;    // slots staged per pass (2 x 2 KB)
 constexpr int FWD_GROUP = 16;    // forward: slots side by side
 
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
-}
-
-// Zero `slots` slots of NF floats from `dst`, the start of a slot of a
-// 16-byte aligned dfeats (so 16-byte aligned itself), in 16-byte stores.
-__device__ __forceinline__ void zero_slots(float* dst, int slots) {
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < slots * (NF / 4); i += P)
-    d[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
 __global__ void __launch_bounds__(P)
 raster_v2_fwd_kernel(const float* __restrict__ feats,
                      const int* __restrict__ counts,

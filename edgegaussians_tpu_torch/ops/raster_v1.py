@@ -1,12 +1,19 @@
 """v1 log-space dense compositor: the counterpart of ``ops/pallas_raster.py``.
 
 Each tile holds ``K`` depth-ordered slots of features ``feats [T,K,8]``
-and the compositor walks all of them: no counts (invalid slots carry a
--1e30 constant term from ``tiles.build_tile_features``, so their alpha is
-exactly 0). The transmittance is carried in log space, as the v1 TPU
-kernel's ``_alpha_terms`` (pallas_raster.py:63-87) does: ``lt`` is the
-running sum of ``log1p(-alpha)``, a slot is kept while ``lt >= log 1e-4``,
-and it contributes ``alpha * exp(lt - log1p(-alpha))``. That rounds
+and there are no counts: invalid slots (past the tile's count, or an
+invalid Gaussian inside it) carry a -1e30 constant term from
+``tiles.build_tile_features``, so their alpha is exactly 0. The Hopper
+kernels find the live slots by that marker (a constant term at or below
+-1e29) and walk only those. That is exact, not an approximation: with the
+basis's constant row of ones (``tiles.pixel_basis``) a marked slot's log
+alpha is about -1e30 on every pixel, so alpha = 0, ``log1p(-0) = -0`` and
+walking it adds exact zeros to every sum, for any input whose other five
+terms stay finite (and far below 1e29). The transmittance is carried in
+log space, as the v1 TPU kernel's ``_alpha_terms`` (pallas_raster.py:
+63-87) does: ``lt`` is the running sum of ``log1p(-alpha)``, a slot is
+kept while ``lt >= log 1e-4``, and it contributes
+``alpha * exp(lt - log1p(-alpha))``. That rounds
 differently from v2's product of ``(1 - alpha)`` in the last bits, and is
 the contract this module keeps. The backward is the suffix form
 ``d alpha = (T_prev - (total - c_inc) / (1 - alpha)) * keep * g`` with the
@@ -41,6 +48,10 @@ from edgegaussians_tpu_torch.ops.segpair import PIXELS, check_tensor
 
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/raster_v1.cu"
 LOG_TRANSMITTANCE_EPS = math.log(TRANSMITTANCE_EPS)
+# A slot is dead where its constant term (feature 5) is at or below this:
+# the -1e30 marker of tiles.build_tile_features. csrc/raster_v1.cu's find
+# holds the same value.
+DEAD_MARK = -1e29
 
 # Launches of each kernel since the last reset_launch_counts(); only the
 # kernel wrappers below add to these.
@@ -50,6 +61,11 @@ launch_counts = {"raster_v1_fwd": 0, "raster_v1_bwd": 0}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def live_slots(feats: torch.Tensor) -> torch.Tensor:
+    """[T,K] bool: the slots the kernels walk, those without the marker."""
+    return feats[..., 5] > DEAD_MARK
 
 
 def _check_inputs(feats, basis, **planes):
@@ -102,8 +118,8 @@ def composite_fwd(feats: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
 def composite_bwd(feats: torch.Tensor, basis: torch.Tensor, g: torch.Tensor,
                   total: torch.Tensor) -> torch.Tensor:
     """VJP w.r.t. feats: upstream g [T,256] and the forward image ``total``
-    [T,256] -> dfeats [T,K,8] (zero past each pixel's walk and in columns
-    6-7). CPU tensors take :func:`composite_bwd_ref`."""
+    [T,256] -> dfeats [T,K,8] (zero on marked slots, past each pixel's
+    walk and in columns 6-7). CPU tensors take :func:`composite_bwd_ref`."""
     if _device_kind(feats) == "cpu":
         return composite_bwd_ref(feats, basis, g, total)
     T, K = _check_inputs(feats, basis, g=g, total=total)

@@ -18,6 +18,10 @@ repository's ``chip_smoke.py`` helpers:
   with every pixel entering done (its zero fill alone), one CTA of each
   alone on faint level-2 rows of 64 and 640 slots that every pixel walks
   (their difference over 576 slots is what a slot adds), and digests;
+- the same cameras' v1 single-level frames at capacity 768 (chip_smoke.py's
+  v1_cases): both v1 kernels, ms per camera, one CTA of each alone on
+  each camera's longest row (the most slots without the -1e30 marker; its
+  bits checked against that row of the whole launch), and digests;
 - the fixture's 12740 means padded to 16384 rows (k = 6, 11, 15) and the
   131072-row cloud (k = 6);
 - the onehot probe on the script's run beside ``onehot @ c`` (both also
@@ -27,7 +31,7 @@ CUDA events, median of 5 blocks; the ``*_device_ms`` and ``*_alone_ms``
 keys are device time of calls queued behind a sleeping kernel
 (chip_smoke.py's queued_ms), which the wrappers' ~20 us of host work a
 call does not pace. Each turn prints one JSON line with its times and the
-compiler's register and shared-memory report of the four sources; the
+compiler's register and shared-memory report of the five sources; the
 run ends with a table of the turns and the card's name and power limit.
 A tree is a checkout of the repository, e.g. the parent commit unpacked
 with ``git archive`` into a git-ignored directory, or a directory holding
@@ -101,6 +105,7 @@ def turn(root: str) -> dict:
                                    c["gt"])[:int(c["s_f"][-1])]
                for c in cases])
         out.update(dense_turn(cs, device))
+        out.update(v1_turn(cs, device))
         t = probes.case_tensors(ONEHOT_CASE, device)
         lib = cs.probe_library(ONEHOT_CASE, t)
         out["probe_onehot_ms"] = cs.cuda_ms(
@@ -112,10 +117,11 @@ def turn(root: str) -> dict:
         lambda: probes.probe_onehot(t["r8"], t["c"]),
         "probe_onehot_kernel")[0]
     out["probe_onehot_library_device_ms"] = cs.profiled_device(lib, "")[0]
-    for name in ("segpair", "raster_v2", "knn", "lab_probes"):
+    for name in ("segpair", "raster_v2", "raster_v1", "knn", "lab_probes"):
         log = str(_build.library_path(name)) + ".log"
         out[f"{name}_ptxas"] = [ln.strip() for ln in open(log)
-                                if "registers" in ln or "Compiling" in ln]
+                                if "registers" in ln or "Compiling" in ln
+                                or "spill" in ln]
     return out
 
 
@@ -169,6 +175,61 @@ def dense_turn(cs, device) -> dict:
         for k in ("fwd", "bwd"):
             out[f"raster_v2_{k}_faint_{s}_alone_ms"] = cs.queued_ms(
                 lambda: cs.dense_call(k, args, basis), 20)
+    torch.cuda.synchronize()
+    return out
+
+
+def v1_turn(cs, device) -> dict:
+    """The v1 kernels on the fixture's single-level frames (chip_smoke.py's
+    phase 2 v1 inputs, the backward on its total): ms per camera, one CTA
+    of each alone on each camera's longest row, and a digest of each
+    kernel's outputs."""
+    import torch
+    from edgegaussians_tpu_torch.ops import raster_v1, tiles
+    # the dead-slot rule of this repository's ops/raster_v1.py, loaded from
+    # its file, so that every turn picks the same rows whatever tree it
+    # times (the module's imports resolve in the tree)
+    spec = importlib.util.spec_from_file_location(
+        "raster_v1_rule", os.path.join(REPO, "edgegaussians_tpu_torch",
+                                       "ops", "raster_v1.py"))
+    rule = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rule)
+    live_slots = rule.live_slots
+    cases = cs.v1_cases(device)
+    basis = tiles.pixel_basis(16, device=device)
+    for c in cases:
+        c["total"] = (0.5 + 0.5 * c["g"]).contiguous()
+
+    def call(kernel, feats, g, total):
+        if kernel == "fwd":
+            return raster_v1.composite_fwd(feats, basis)
+        return raster_v1.composite_bwd(feats, basis, g, total)
+
+    out = {}
+    # per camera, the row with the most live slots and its one-row frame
+    longest = []
+    for c in cases:
+        r = int(live_slots(c["feats"]).sum(1).argmax())
+        longest.append((r, c["feats"][r:r + 1].contiguous()))
+    for k in ("fwd", "bwd"):
+        def calls():
+            return [call(k, c["feats"], c["g"], c["total"]) for c in cases]
+        out[f"raster_v1_{k}_ms"] = cs.cuda_ms(calls, 20) / len(cases)
+        out[f"raster_v1_{k}_device_ms"] = cs.queued_ms(calls, 20) / len(
+            cases)
+        out[f"raster_v1_{k}_digest"] = digest(calls())
+        alone = []
+        for c, (r, one) in zip(cases, longest):
+            args = (one, c["g"][r:r + 1].contiguous(),
+                    c["total"][r:r + 1].contiguous())
+            if not torch.equal(call(k, *args)[0],
+                               call(k, c["feats"], c["g"], c["total"])[r]):
+                raise AssertionError(f"raster_v1_{k}: the longest row alone "
+                                     "differs from that row of the launch")
+            alone.append(cs.queued_ms(lambda: call(k, *args), 20))
+        out[f"raster_v1_{k}_longest_row_alone_ms"] = alone
+    out["raster_v1_longest_row_live"] = [
+        int(live_slots(one).sum()) for _, one in longest]
     torch.cuda.synchronize()
     return out
 

@@ -26,8 +26,14 @@ Tasks (``--tasks``, comma-separated):
   CLI with the arguments after ``--`` in the same group (the
   ``chip_smoke.py`` phase 7c run).
 
+``--device`` is ``cuda`` unless the caller asks for the CPU: without a GPU
+the worker exits with an error that names ``--device cpu``, and never
+falls back to the CPU. ``proj``, ``dp`` and ``train`` are the CPU
+harnesses that tests/test_torch_parallel.py holds to the JAX package, and
+refuse ``--device cuda``; ``probe`` and ``cli`` run on either device.
+
     torchrun --standalone --nproc_per_node 2 \\
-        scripts/torch_multiprocess_worker.py --tasks cli --device cuda \\
+        scripts/torch_multiprocess_worker.py --tasks cli \\
         --dist_backend gloo --out DIR -- --config_file ... --mesh_tiles 2
 """
 
@@ -47,6 +53,8 @@ from edgegaussians_tpu_torch.config import config_from_dict
 from edgegaussians_tpu_torch.models.gaussians import GROUPS
 from edgegaussians_tpu_torch.parallel import distributed, mesh as mesh_mod
 
+# the tasks that run on the CPU only (held to the JAX package there)
+CPU_TASKS = ("proj", "dp", "train")
 # the probe's array: ROWS_PER_RANK rows of 128 lanes per rank
 PROBE_ROWS_PER_RANK = 16384
 PROBE_SEED = 5
@@ -274,18 +282,26 @@ def main(argv=None):
     ap.add_argument("--tasks", required=True)
     ap.add_argument("--inputs", default=None)
     ap.add_argument("--out", required=True)
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     ap.add_argument("--dist_backend", default=None,
                     choices=["nccl", "gloo"])
     args = ap.parse_args(argv)
     args.cli_args = cli_args
+    tasks = args.tasks.split(",")
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("torch_multiprocess_worker: torch sees no CUDA "
+                             "device; pass --device cpu to run on the CPU")
+        cpu_only = [t for t in tasks if t in CPU_TASKS]
+        if cpu_only:
+            raise SystemExit(f"torch_multiprocess_worker: tasks {cpu_only} "
+                             "run on the CPU only; pass --device cpu")
     torch.set_num_threads(1)
     if not distributed.initialize(args.dist_backend,
                                   device_type=args.device):
         raise SystemExit("run this worker under torchrun (or with its "
                          "environment): no process group to join")
     out = {}
-    tasks = args.tasks.split(",")
     try:
         if args.inputs:
             cfg, data, state_arrays = load_inputs(args.inputs)
@@ -294,7 +310,7 @@ def main(argv=None):
         if "dp" in tasks:
             task_dp(cfg, data, state_arrays, out)
         if "probe" in tasks:
-            task_probe(out)
+            task_probe(out, torch.device(args.device))
         if "train" in tasks:
             task_train(cfg, data, out)
         if "cli" in tasks:

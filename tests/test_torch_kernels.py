@@ -1473,3 +1473,201 @@ def test_raster_v2_wrappers_launch_one_kernel_per_call(device, kernel):
     key = f"raster_v2_{kernel}"
     _check_one_kernel_per_call(call, raster_v2.launch_counts, key,
                                f"{key}_kernel")
+
+
+# -- the v1 kernels' find, batches, t-free groups and stops -----------------
+
+V1_GROUP = 16           # slots whose t-free terms the v1 kernels take at once
+V1_BWD_BATCH = 64       # live slots per staged batch of csrc/raster_v1.cu's
+V1_FWD_BATCH = 128      # backward and forward
+V1_CHUNK = 1024         # slots whose markers its find reads at once
+V1_KS = [16, 64, 300, 768, 770, V1_CHUNK + 76]     # the last: two chunks
+V1_FRACS = [0.0, 0.02, 1.0]
+# live counts that end the live list on and around group and batch edges
+V1_EDGE_COUNTS = [1, V1_GROUP - 1, V1_GROUP, V1_GROUP + 1, V1_BWD_BATCH - 1,
+                  V1_BWD_BATCH, V1_BWD_BATCH + 1, V1_FWD_BATCH - 1,
+                  V1_FWD_BATCH, V1_FWD_BATCH + 1, 255, 256, 257]
+# (position in the live list, pixel): two opaque slots at live positions
+# e - 1 and e (alpha 0.995 on the pixel, or on every pixel for None), so
+# that the pixel stops exactly at the e-th live slot
+V1_STOPS = [(V1_GROUP - 1, None), (V1_GROUP, None), (V1_BWD_BATCH - 1, None),
+            (V1_BWD_BATCH, None), (V1_FWD_BATCH - 1, None),
+            (V1_FWD_BATCH, None), (256, None), (V1_GROUP, STOP_PIXEL),
+            (V1_FWD_BATCH, STOP_PIXEL)]
+
+
+def _spread(k, n):
+    """n distinct slots of [0, k) spread evenly over it (markers between)."""
+    return np.unique(np.linspace(0, k - 1, n).round().astype(int))
+
+
+def _v1_frame(k, frac, seed=0):
+    """(feats [T,K,8], g [T,256], rows) of a v1 frame at K = k: broad, faint
+    Gaussians in tile-local coordinates (as _seg_fwd_features) in every
+    slot, and the -1e30 marker on the dead ones. Four rows live at
+    ``frac`` at random; for 0 < frac, a row per V1_EDGE_COUNTS entry n <= k
+    with n live slots spread over it, and a row per V1_STOPS entry whose
+    2 e + 2 live slots (all k if fewer) are spread over it, stopping at
+    its e-th live slot; for frac > 0 also a saturated row, every slot live
+    at alpha 0.5 on every pixel (every pixel stops at its 14th slot, 13).
+    ``rows`` maps "stops" to [(row, slot, pixel)] (slot: the row's slot
+    where the pixel stops) and "saturated" to that row."""
+    r = np.random.default_rng(seed)
+    live = [r.uniform(0, 1, k) < frac for _ in range(4)]
+    stops, sat = [], None
+    if frac > 0:
+        for n in V1_EDGE_COUNTS:
+            if n <= k:
+                live.append(np.isin(np.arange(k), _spread(k, n)))
+        for e, pixel in V1_STOPS:
+            at = _spread(k, min(k, 2 * e + 2))
+            if e < len(at):
+                live.append(np.isin(np.arange(k), at))
+                stops.append((len(live) - 1, at[e - 1], at[e], pixel))
+        live.append(np.ones(k, bool))
+        sat = len(live) - 1
+    live = np.stack(live)
+    t = live.shape[0]
+    src = np.zeros((t, k, 8), np.float32)
+    src[..., 0] = r.uniform(0.004, 0.05, (t, k))
+    src[..., 2] = r.uniform(0.004, 0.05, (t, k))
+    src[..., 1] = r.uniform(-0.5, 0.5, (t, k)) * np.sqrt(
+        src[..., 0] * src[..., 2])
+    src[..., 3:5] = r.uniform(-6.0, 22.0, (t, k, 2))
+    src[..., 5] = np.log(r.uniform(0.004, 0.02, (t, k)))
+    src[..., 6] = 1.0
+    for row, k0, k1, pixel in stops:
+        peak = [0.0] * 5 if pixel is None else [2.0, 0.0, 2.0, 3.5, 7.5]
+        src[row, [k0, k1], :6] = peak + [np.log(0.995)]
+    if sat is not None:
+        src[sat, :, :6] = [0.0] * 5 + [np.log(0.5)]
+    zero = torch.zeros(t * k)
+    feats = segpair.build_pair_features(
+        torch.from_numpy(src.reshape(-1, 8)), zero, zero).reshape(t, k, 8)
+    feats[..., 5][torch.from_numpy(~live)] = -1e30
+    g = torch.from_numpy(r.uniform(-1, 1, (t, 256)).astype(np.float32))
+    return (feats.contiguous(), g,
+            {"stops": [(row, k1, px) for row, _, k1, px in stops],
+             "saturated": sat})
+
+
+def _v1_both(feats, basis, g, total):
+    """(img, dfeats) of the v1 kernels, the backward on ``total``."""
+    return (raster_v1.composite_fwd(feats, basis),
+            raster_v1.composite_bwd(feats, basis, g, total))
+
+
+def _check_v1(got, feats, basis, g, total):
+    """The v1 kernels' (img, dfeats) against the plain versions: image atol
+    1e-5, dfeats 1e-4 of max-abs (exact zeros where the plain dfeats are
+    all zero); exact zeros on every marked slot and in columns 6-7."""
+    img, d = got
+    torch.testing.assert_close(img, raster_v1.composite_fwd_ref(feats, basis),
+                               rtol=0, atol=1e-5)
+    d_r = raster_v1.composite_bwd_ref(feats, basis, g, total)
+    scale = float(d_r.abs().max())
+    torch.testing.assert_close(d, d_r, rtol=0, atol=1e-4 * scale)
+    marked = ~raster_v1.live_slots(feats)
+    assert bool((d[marked] == 0).all()) and bool((d[..., 6:] == 0).all())
+
+
+@pytest.mark.parametrize("frac", V1_FRACS)
+@pytest.mark.parametrize("k", V1_KS)
+def test_raster_v1_kernels_on_live_lists_and_stops(device, k, frac):
+    """Both v1 kernels against their plain versions at K = 16, 64, 300,
+    768, 770 and 1100 (two chunks of the find) and live fractions 0, 0.02
+    and 1: live lists ending on and around the 16-slot groups and the 64-
+    and 128-slot batches, the markers between the live slots; a pixel, or
+    every pixel, stopping on the last or first live slot of a group or a
+    batch (checked on the plain version's log transmittance); a row of
+    every slot live (K = 768: the longest walk), and a saturated one. Rows
+    with no live slot give a zero image and zero dfeats; every slot after
+    a stop of every pixel gets exact zero dfeats. Two launches give the
+    same bits."""
+    feats, g, rows = (x.to(device) if torch.is_tensor(x) else x
+                      for x in _v1_frame(k, frac))
+    basis = tiles.pixel_basis(16, device=device)
+    total = raster_v1.composite_fwd_ref(feats, basis)
+    got = _v1_both(feats, basis, g, total)
+    again = _v1_both(feats, basis, g, total)
+    torch.cuda.synchronize()
+    _check_v1(got, feats, basis, g, total)
+    assert all(map(torch.equal, got, again))
+    img, d = got
+    dead = (~raster_v1.live_slots(feats)).all(dim=1)
+    assert bool((img[dead] == 0).all()) and bool((d[dead] == 0).all())
+    if frac == 0.0:
+        assert bool(dead.all())
+    if frac == 1.0:                         # the random rows: all live
+        assert bool(raster_v1.live_slots(feats[:4]).all())
+    _, _, keep, _ = raster_v1._chunk_terms(feats, basis)
+    slot = torch.arange(k, device=device)
+    for row, at, pixel in rows["stops"]:
+        for p in [pixel] if pixel is not None else range(256):
+            stopped = ~keep[row, :, p] & raster_v1.live_slots(feats)[row]
+            assert int(stopped.float().argmax()) == at
+        if pixel is None:
+            assert bool((d[row, at:] == 0).all())
+    if rows["saturated"] is not None:
+        s = rows["saturated"]
+        assert bool(keep[s, :13].all()) and bool((~keep[s, 13:]).all())
+        assert bool((d[s, 13:] == 0).all())
+        assert float(img[s].min()) > 0.999 - 1e-4
+
+
+@pytest.mark.parametrize("k", [768, 1100])
+def test_raster_v1_kernels_on_a_misaligned_feats(device, k):
+    """feats starting 4 bytes past a 16-byte boundary: both kernels gather
+    the live slots with 4-byte copies and agree with their plain versions
+    and with the aligned launch bit for bit."""
+    feats, g, _ = (x.to(device) if torch.is_tensor(x) else x
+                   for x in _v1_frame(k, 0.02, 1))
+    basis = tiles.pixel_basis(16, device=device)
+    total = raster_v1.composite_fwd_ref(feats, basis)
+    odd = _misaligned(feats)
+    got = _v1_both(odd, basis, g, total)
+    torch.cuda.synchronize()
+    _check_v1(got, odd, basis, g, total)
+    assert all(map(torch.equal, got, _v1_both(feats, basis, g, total)))
+
+
+@pytest.mark.parametrize("k", [768, 1100])
+def test_raster_v1_kernels_write_every_element(device, monkeypatch, k):
+    """torch.empty and torch.empty_like returning NaNs: every element of
+    img and dfeats is still written (the zeros of marked slots, of live
+    slots past every pixel's stop and of chunks the walk never reaches
+    included)."""
+    feats, g, _ = (x.to(device) if torch.is_tensor(x) else x
+                   for x in _v1_frame(k, 0.02, 2))
+    basis = tiles.pixel_basis(16, device=device)
+    total = raster_v1.composite_fwd_ref(feats, basis)
+    for name in ("empty", "empty_like"):
+        alloc = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _alloc=alloc, **kw:
+                            _alloc(*a, **kw).fill_(float("nan")))
+    got = _v1_both(feats, basis, g, total)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _check_v1(got, feats, basis, g, total)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_raster_v1_wrappers_launch_one_kernel_per_call(device, kernel):
+    """Each call of a v1 wrapper launches its kernel and nothing else: no
+    zero fill of dfeats beside it (counted on the host's launch records:
+    _check_one_kernel_per_call)."""
+    feats, g, _ = (x.to(device) if torch.is_tensor(x) else x
+                   for x in _v1_frame(300, 0.02))
+    basis = tiles.pixel_basis(16, device=device)
+    if kernel == "fwd":
+        def call():
+            raster_v1.composite_fwd(feats, basis)
+    else:
+        total = raster_v1.composite_fwd_ref(feats, basis)
+
+        def call():
+            raster_v1.composite_bwd(feats, basis, g, total)
+    key = f"raster_v1_{kernel}"
+    _check_one_kernel_per_call(call, raster_v1.launch_counts, key,
+                               f"{key}_kernel")

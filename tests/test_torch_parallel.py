@@ -144,7 +144,8 @@ def spawn(world, tasks, inputs, out):
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
                LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
-    cmd = [sys.executable, _WORKER, "--tasks", tasks, "--out", str(out)]
+    cmd = [sys.executable, _WORKER, "--tasks", tasks, "--out", str(out),
+           "--device", "cpu"]
     if inputs:
         cmd += ["--inputs", str(inputs)]
     procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r),
@@ -471,3 +472,20 @@ def test_initialize_and_mesh_without_a_launcher(monkeypatch):
     with pytest.raises(ValueError, match="CUDA ranks only"):
         distributed.initialize("nccl", device_type="cpu")
     assert not torch.distributed.is_initialized()
+
+
+def test_worker_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """The worker's --device is cuda unless the caller names the CPU: run
+    with no --device in a process that sees no GPU, it exits non-zero
+    before joining a group, with a message naming ``--device cpu``, and
+    writes nothing (no fallback to the CPU)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    proc = subprocess.run([sys.executable, _WORKER, "--tasks", "cli",
+                           "--out", str(tmp_path / "out")], env=env,
+                          cwd=_REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr, proc.stderr[-2000:]
+    assert not (tmp_path / "out").exists()

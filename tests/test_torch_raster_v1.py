@@ -50,16 +50,49 @@ class _Rng:
 
 
 # (seed, t, k, valid_frac): the JAX test's shape, a long frame that crosses
-# both plain-version chunk rows and the kernels' staging batches, and a
-# dense one where many pixels saturate
+# both plain-version chunk rows and the kernels' staging batches, a dense
+# one where many pixels saturate, and the fixture's capacity at its live
+# share (~2%; the marked slots interleaved with the live ones, plus
+# SPARSE_DEAD's tail and whole rows)
 FRAMES = {"jax_test": (7, 8, 64, 0.8), "long": (3, 6, 300, 0.9),
-          "saturated": (5, 4, 256, 1.0)}
+          "saturated": (5, 4, 256, 1.0), "sparse": (11, 6, 768, 0.02)}
+SPARSE_DEAD = dict(tail=600, rows=(1, 4))
+
+
+def _frame(name):
+    """FRAMES[name]'s features (jnp [t,k,8]); the sparse frame also carries
+    the -1e30 marker on every slot from SPARSE_DEAD's tail on and on all
+    slots of its rows."""
+    seed, t, k, frac = FRAMES[name]
+    feats = _random_feats(_Rng(seed), t=t, k=k, valid_frac=frac)
+    if name == "sparse":
+        feats = feats.at[:, SPARSE_DEAD["tail"]:, 5].set(-1e30)
+        feats = feats.at[jnp.asarray(SPARSE_DEAD["rows"]), :, 5].set(-1e30)
+    return feats
+
+
+def _in_order(feats, basis, g, total):
+    """(img, dfeats) by the plain versions' algebra (raster_v1._chunk_terms
+    and the suffix form), with sums whose rounding removing a slot cannot
+    change: the image the running sum's last entry (the slots added in
+    depth order, as the kernels add them) and the pixel sums in float64,
+    rounded once (an f32 matmul groups its terms by the slot count)."""
+    T, K, _ = feats.shape
+    if K == 0:
+        return torch.zeros((T, 256)), torch.zeros_like(feats)
+    alpha, ok, keep, t_prev = raster_v1._chunk_terms(feats, basis)
+    c_inc = torch.cumsum(alpha * t_prev * keep, dim=1)
+    dalpha = (t_prev - (total[:, None, :] - c_inc) / (1.0 - alpha)) * \
+        keep * g[:, None, :]
+    dla = torch.where(ok & (alpha < raster_v1.ALPHA_CLAMP), alpha * dalpha,
+                      torch.zeros_like(alpha))
+    return c_inc[:, -1], (dla.double() @ basis.T.double()).float()
 
 
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_raster_v1_plain_matches_pallas_interpret(name):
     seed, t, k, frac = FRAMES[name]
-    feats = _random_feats(_Rng(seed), t=t, k=k, valid_frac=frac)
+    feats = _frame(name)
     basis = jtiles.pixel_basis(16)
     g = np.random.default_rng(seed + 1).uniform(
         -1, 1, (t, 256)).astype(np.float32)
@@ -78,6 +111,56 @@ def test_raster_v1_plain_matches_pallas_interpret(name):
     assert np.all(d_t.numpy()[..., 6:] == 0)
     if name == "saturated":
         assert float(img_t.max()) > 0.999
+    if name == "sparse":
+        marked = ~raster_v1.live_slots(ft)
+        assert 0.0 < float((~marked).float().mean()) < 0.03
+        assert bool(marked[:, SPARSE_DEAD["tail"]:].all())
+        assert np.all(img_t.numpy()[list(SPARSE_DEAD["rows"])] == 0)
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_raster_v1_plain_gives_marked_slots_zero_dfeats(name):
+    """Every marked slot's dfeats row is exactly zero in the plain
+    backward, all eight columns, whatever the upstream g: the rows the
+    kernels write as zeros without walking the slot."""
+    ft = torch.tensor(np.asarray(_frame(name)))
+    basis = tiles.pixel_basis(16)
+    g = torch.from_numpy(np.random.default_rng(FRAMES[name][0] + 2).uniform(
+        -1, 1, (ft.shape[0], 256)).astype(np.float32))
+    img = raster_v1.composite_fwd_ref(ft, basis)
+    d = raster_v1.composite_bwd_ref(ft, basis, g, img)
+    marked = ~raster_v1.live_slots(ft)
+    assert bool((d[marked] == 0).all())
+    assert bool((d[~marked] != 0).any())
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_raster_v1_plain_skipping_marked_slots_is_exact(name):
+    """Removing a row's marked slots leaves the image and the live slots'
+    dfeats bit for bit as they were: a marked slot has alpha 0 on every
+    pixel, so log1p(-0) = -0 and every running sum takes an exact zero
+    from it. This is what the kernels' walk over the live slots alone
+    rests on. Summed as the kernels sum (``_in_order``), which agrees with
+    the plain versions within the header's tolerances."""
+    ft = torch.tensor(np.asarray(_frame(name)))
+    basis = tiles.pixel_basis(16)
+    g = torch.from_numpy(np.random.default_rng(FRAMES[name][0] + 3).uniform(
+        -1, 1, (ft.shape[0], 256)).astype(np.float32))
+    img_r = raster_v1.composite_fwd_ref(ft, basis)
+    img, d = _in_order(ft, basis, g, img_r)
+    torch.testing.assert_close(img, img_r, rtol=0, atol=1e-5)
+    d_r = raster_v1.composite_bwd_ref(ft, basis, g, img_r)
+    torch.testing.assert_close(d, d_r, rtol=0,
+                               atol=1e-4 * float(d_r.abs().max()))
+    img, d = _in_order(ft, basis, g, img)
+    live = raster_v1.live_slots(ft)
+    for r in range(ft.shape[0]):
+        one = ft[r][live[r]][None].contiguous()
+        img_live, d_live = _in_order(one, basis, g[r:r + 1], img[r:r + 1])
+        assert torch.equal(img_live[0], img[r]), r
+        assert torch.equal(d_live[0], d[r][live[r]]), r
+        if not one.shape[1]:
+            assert bool((img[r] == 0).all())
 
 
 def test_raster_v1_plain_backward_is_the_gradient_of_plain_forward():
