@@ -42,12 +42,20 @@ Phases, in order; any failure exits non-zero:
    2 (pair): the v4 block-window pair kernels against their plain versions
    on the same cameras at the recipe's cap 768 and budget 49152, binned
    with block_tiles 8 (brick-alignment pads present), forward and
-   backward.
+   backward, two launches bit-equal; beside each launch's device time,
+   one CTA alone on each camera's longest run (the same bits as that row
+   of the whole launch).
    2 (v1): the v1 log-space kernels against theirs on the cameras'
    single-level frame at capacity 768, forward and backward, two launches
    bit-equal; per camera the slots the kernels' find keeps (those without
    the -1e30 marker) against the marked ones it skips, and the longest
    row's live count.
+   2 (rank_sum): the deterministic row sum of the compositors' backwards
+   on each fixture camera's seg backward rows and on rows at the seg main
+   path's size: bit for bit the CPU plain version's, two launches
+   bit-equal, within the gradient gate of the plain version on the card
+   (index_add_ atomics), timed beside that index_add_ alone (events and
+   device time, the sort and the sum kernel apart).
    2b: the whole rasterizer on the GPU against the CPU path on a small
    scene, through the seg, two-level and single-level dispatch, the v4
    pair path, the v1 single-level path and the pair-prefix two-level
@@ -56,6 +64,10 @@ Phases, in order; any failure exits non-zero:
    epochs of the ``configs/ABC_DexiNed.json`` recipe through
    ``edgegaussians_tpu_torch.cli.train --backend cuda``, with both seg
    kernels' launch counts held to epochs x views.
+   3b: determinism: the same recipe for 2 epochs, its view step 13 run
+   twice from the same state (restored in place): the gradients, and the
+   parameters, Adam moments and absgrads after the step, bit for bit
+   equal.
 4. The fallback path: the same scan and recipe for 5 epochs with the pair
    budget cut below epoch 0's pair count and a duplication moved to epoch
    2. Epoch 0 overflows and the run switches to the dense two-level path:
@@ -167,7 +179,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
 KERNEL_LIBS = ("segpair", "raster_v2", "knn", "pair", "raster_v1",
-               "shard_sum", "lab_chunked", "lab_probes")
+               "rank_sum", "shard_sum", "lab_chunked", "lab_probes")
 EPOCHS = 3
 VIEWS = 10
 FALLBACK_EPOCHS = 5
@@ -203,14 +215,22 @@ ORIENT_EPOCHS = 6
 ORIENT_CUTS = dict(start_ratio_loss_at_epoch=0, start_dir_loss_at_epoch=1)
 WAYWARD_EPOCH = 3
 FULL_VIEWS = 50
+# phase 3b: the main path cut to DET_EPOCHS epochs, its view step at
+# DET_STEP renders (epoch 1) run twice from the same state
+DET_EPOCHS = 2
+DET_STEP = VIEWS + 3
+# phase 2 (rank_sum) at the seg main path's size: the recipe's pair budget
+# and capacity, ~6.2k valid pairs over the 2500 Gaussians of its seed
+MAIN_PAIRS, MAIN_GAUSSIANS = 6200, 2500
 # forward image: both sides take the same f32 steps per pixel; only the
 # order of the log-alpha sum (FMA chain vs matmul) and of the
 # transmittance products (sequential vs cumprod scan) differ
 IMG_ATOL = 1e-5
 # dfeats / dpacked / absgrad, relative to the plain version's max-abs: the
-# per-slot sums over 256 pixels are 3xTF32 tensor-core products (seg) or
-# a shuffle tree (the other compositors) vs an f32 matmul, and the rows
-# reach [N,8] through index_add_ atomics, whose order varies by run
+# per-slot sums over 256 pixels are 3xTF32 tensor-core products vs an f32
+# matmul, and the rows reach [N,8] through the row-sum kernel (in row
+# order) on one side and the plain version's index_add_ atomics (in
+# another order on every run) on the other
 GRAD_RTOL_OF_MAX = 1e-4
 # the H100 SXM's published peaks from NVIDIA's data sheet: HBM bytes/s
 # and f32 FLOP/s outside the tensor cores; the special-function units
@@ -1013,7 +1033,190 @@ def phase_pair_kernels(device):
               "pair_bwd": bound_ms(per_cam[1], per_cam[2], BWD_OPS)}
     log(f"per camera: {per_cam[2]:.0f} pair-pixel evaluations, "
         f"{per_cam[0] / 1e6:.2f} MB (fwd) / {per_cam[1] / 1e6:.2f} MB (bwd)")
-    return err, time_kernels(calls, len(cases), bounds), bounds
+    ms = time_kernels(calls, len(cases), bounds)
+    with torch.no_grad():
+        for k in ("fwd", "bwd"):
+            # the backward writes the rows inside runs, and no pad row
+            rows = (slice(None) if k == "fwd"
+                    else cases[0]["pbins"].pair_valid)
+            twice = [pair_call(k, pair_args(cases[0]), basis)[rows]
+                     for _ in range(2)]
+            if not torch.equal(*twice):
+                raise AssertionError(f"pair_{k}: two launches on the same "
+                                     "inputs differ")
+    log("pair_fwd, pair_bwd: two launches on camera 0 bit-equal (the "
+        "backward's rows inside runs)")
+    phase_pair_chain(cases, basis, {k: v[3] for k, v in ms.items()})
+    return err, ms, bounds
+
+
+def pair_args(cs) -> tuple:
+    """(feats, sfp, counts, g, total) of one camera's v4 frame (after
+    phase_pair_kernels set its timing total)."""
+    return cs["feats"], cs["sfp"], cs["counts"], cs["g"], cs["total"]
+
+
+def pair_call(kernel: str, args, basis):
+    """The v4 ``kernel`` ("fwd" or "bwd") wrapper on ``args`` (as
+    pair_args)."""
+    from edgegaussians_tpu_torch.ops import pair
+    feats, sfp, counts, g, total = args
+    if kernel == "fwd":
+        return pair.pair_fwd(feats, sfp, counts, basis)
+    return pair.pair_bwd(feats, sfp, counts, basis, g, total)
+
+
+def pair_longest_rows(cases, device) -> list:
+    """Per camera, its longest run alone as a one-row frame: (row, pair
+    args of it)."""
+    out = []
+    for cs in cases:
+        r = int(cs["counts"].argmax())
+        s0, n = int(cs["sfp"][r]), int(cs["counts"][r])
+        one = torch.tensor([n], dtype=torch.int32, device=device)
+        out.append((r, (cs["feats"][s0:s0 + n].contiguous(),
+                        torch.zeros_like(one), one,
+                        cs["g"][r:r + 1].contiguous(),
+                        cs["total"][r:r + 1].contiguous())))
+    return out
+
+
+def phase_pair_chain(cases, basis, device_ms: dict) -> None:
+    """The v4 kernels' chain, timed one CTA alone (queued_ms): each kernel
+    on each camera's longest run alone (its own pairs; the same bits as
+    that row of the whole launch), beside the launch's device time per
+    camera."""
+    device = cases[0]["feats"].device
+    rows = pair_longest_rows(cases, device)
+    own = {}
+    with torch.no_grad():
+        for c, (cs, (r, one)) in enumerate(zip(cases, rows)):
+            full = pair_call("fwd", pair_args(cs), basis)
+            if not torch.equal(full[r:r + 1], pair_call("fwd", one, basis)):
+                raise AssertionError(f"pair_fwd: camera {c}'s longest run "
+                                     "alone differs from its row of the "
+                                     "whole launch")
+            s0, n = int(cs["sfp"][r]), int(cs["counts"][r])
+            full = pair_call("bwd", pair_args(cs), basis)
+            if not torch.equal(full[s0:s0 + n], pair_call("bwd", one, basis)):
+                raise AssertionError(f"pair_bwd: camera {c}'s longest run "
+                                     "alone differs from its rows of the "
+                                     "whole launch")
+        for k in ("fwd", "bwd"):
+            own[k] = [queued_ms(lambda: pair_call(k, one, basis), 20)
+                      for _, one in rows]
+    lengths = [int(one[2]) for _, one in rows]
+    for k in ("fwd", "bwd"):
+        ms = device_ms[f"pair_{k}"]
+        log(f"pair_{k} {ms:.4f} ms per camera (device) beside one CTA "
+            f"alone on each camera's longest run {lengths}: its own pairs "
+            + ", ".join(f"{t:.4f}" for t in own[k]) + " ms (x"
+            + ", x".join(f"{t / ms:.2f}" for t in own[k])
+            + f" of the launch; mean x{np.mean(own[k]) / ms:.2f})")
+
+
+def rank_sum_cases(device):
+    """(name, rows [B,10], idx [B], n, valid [B]) of the row sum: each
+    fixture camera's seg backward rows (budget 49152, ~33k valid pairs of
+    12740 Gaussians, dfeats from the seg kernel) and one at the seg main
+    path's size (the same budget and the recipe's capacity 16384, ~6.2k
+    valid pairs over the 2500 Gaussians of its seed; seeded rows)."""
+    from edgegaussians_tpu_torch.ops import segpair
+    cases, basis = seg_cases(device)
+    out = []
+    with torch.no_grad():
+        for c, cs in enumerate(cases):
+            pb = cs["pbins"]
+            dfe = segpair.segpair_bwd(cs["feats"], cs["s_f"], basis,
+                                      (cs["g"] * 0.5).contiguous())
+            dfe = torch.where(pb.pair_valid[:, None], dfe,
+                              torch.zeros_like(dfe))
+            dsrc = segpair.build_pair_features_vjp(cs["src"], cs["ox"],
+                                                   cs["oy"], dfe)
+            rows = torch.cat([dsrc, dsrc[:, 3:5].abs()], -1).contiguous()
+            out.append((f"camera {c}", rows, pb.pair_ranks, cs["n"],
+                        pb.pair_valid))
+    gen = torch.Generator(device=device).manual_seed(12)
+    idx = torch.randint(0, MAIN_GAUSSIANS, (BUDGET,), generator=gen,
+                        device=device)
+    rows = torch.randn((BUDGET, 10), generator=gen, device=device)
+    valid = torch.arange(BUDGET, device=device) < MAIN_PAIRS
+    out.append(("main path", rows, idx, KNN_CAPACITY, valid))
+    return out
+
+
+def phase_rank_sum(device):
+    """Phase 2 (rank_sum): the row sum of the compositors' backwards
+    against its plain version (bit for bit against the CPU's, within the
+    gradient gate against the card's index_add_ atomics), two launches
+    bit-equal, then its time beside the index_add_ it replaced, at the
+    fixture's and the seg main path's sizes."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    log("== phase 2 (rank_sum): the deterministic row sum vs its plain "
+        "version and index_add_")
+    cases = rank_sum_cases(device)
+    err = 0.0
+    times = {}
+    for name, rows, idx, n, valid in cases:
+        with torch.no_grad():
+            got = rs.rank_sum(rows, idx, n, valid)
+            again = rs.rank_sum(rows, idx, n, valid)
+            plain = rs.rank_sum_ref(rows, idx, n, valid)
+            cpu = rs.rank_sum_ref(rows.cpu(), idx.cpu(), n, valid.cpu())
+            torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"rank_sum {name}: two launches differ")
+        if not torch.equal(got.cpu().view(torch.int32),
+                           cpu.view(torch.int32)):
+            raise AssertionError(f"rank_sum {name}: not the CPU plain "
+                                 "version's bits")
+        rel = rel_err(got, plain, f"rank_sum {name}")
+        err = max(err, (got - plain).abs().max().item())
+        keys = torch.where(valid, idx, torch.full_like(idx, n))
+        keys32, perm = torch.sort(keys.to(torch.int32), stable=True)
+        acc = torch.zeros((n + 1, 10), device=device)
+        out = torch.zeros((n, 10), device=device)
+        # what the sum needs: the mask, each valid row and its index
+        # (dropped rows are never read), the [n, C] output; one add a
+        # valid element
+        nv = int(valid.sum())
+        width = rows.shape[1]
+        nbytes = (nv * (width * rows.element_size() + idx.element_size())
+                  + valid.numel() * valid.element_size() + n * width * 4)
+        t = {"kernel": cuda_ms(lambda: rs.rank_sum(rows, idx, n, valid),
+                               20),
+             "plain": cuda_ms(lambda: rs.rank_sum_ref(rows, idx, n, valid),
+                              20),
+             "library": cuda_ms(lambda: acc.index_add_(0, keys, rows), 20),
+             "kernel_dev": queued_ms(
+                 lambda: rs.rank_sum(rows, idx, n, valid), 20),
+             "sum_only_dev": queued_ms(
+                 lambda: rs.launch_sum(rows, keys32, perm, n, out), 20),
+             "library_dev": queued_ms(
+                 lambda: acc.index_add_(0, keys, rows), 20),
+             "bound": bound_ms(nbytes, nv, (width, 0))}
+        times[name] = t
+        log(f"rank_sum {name}: {rows.shape[0]} rows, {int(valid.sum())} "
+            f"valid, n {n}: rel err {rel:.3g}, bit-equal to the CPU plain "
+            f"version; wrapper {t['kernel']:.4f} ms (device "
+            f"{t['kernel_dev']:.4f}: sort + sum; the sum kernel alone "
+            f"{t['sum_only_dev']:.4f}), plain {t['plain']:.4f} ms, "
+            f"index_add_ {t['library']:.4f} ms "
+            f"(device {t['library_dev']:.4f}), bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]})")
+    cams = [t for name, t in times.items() if name.startswith("camera")]
+
+    def mean(key):
+        return float(np.mean([t[key] for t in cams]))
+    bound = float(np.mean([t["bound"][0] for t in cams]))
+    bounds = {"rank_sum": (bound, cams[0]["bound"][1])}
+    log(f"rank_sum per fixture camera: wrapper {mean('kernel'):.4f} ms "
+        f"(device {mean('kernel_dev'):.4f}), index_add_ "
+        f"{mean('library'):.4f} ms (device {mean('library_dev'):.4f}), "
+        f"bound {bound:.4f} ms")
+    ms = {"rank_sum": (mean("kernel"), mean("plain"), mean("library"),
+                       mean("kernel_dev"))}
+    return {"rank_sum": err}, ms, bounds
 
 
 def v1_cases(device):
@@ -1385,8 +1588,8 @@ def trace_summary(trace_path: str, view_steps: int) -> str:
 def kernel_modules():
     """The port's kernel modules, each with its ``launch_counts``."""
     from edgegaussians_tpu_torch.ops import (
-        knn, pair, raster_v1, raster_v2, segpair, shard_sum)
-    return (segpair, raster_v2, knn, pair, raster_v1, shard_sum)
+        knn, pair, rank_sum, raster_v1, raster_v2, segpair, shard_sum)
+    return (segpair, raster_v2, knn, pair, raster_v1, rank_sum, shard_sum)
 
 
 def no_launches(**counts):
@@ -1489,7 +1692,8 @@ def phase_main_path(tmp: str, scan: str, profile_dir=None):
                                                profile_dir)
     rows = epoch_lines(text, EPOCHS)
     expected = no_launches(segpair_fwd=EPOCHS * VIEWS,
-                           segpair_bwd=EPOCHS * VIEWS)
+                           segpair_bwd=EPOCHS * VIEWS,
+                           rank_sum=EPOCHS * VIEWS)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the seg main path, "
                              f"expected {expected}")
@@ -1499,6 +1703,90 @@ def phase_main_path(tmp: str, scan: str, profile_dir=None):
     log(f"main path ok: losses={[r[0] for r in rows]} launches={launches} "
         f"ply={n} Gaussians")
     return launches, [r[2] for r in rows[1:]]
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state's model and Adam moments, by name."""
+    m = state.model
+    out = {f"param {g}": p for g, p in m.params().items()}
+    for g, (mu, nu) in state.opt.moments.items():
+        out[f"mu {g}"], out[f"nu {g}"] = mu, nu
+    out.update(alive=m.alive, absgrads=m.absgrads,
+               absgrad_count=m.absgrad_count)
+    return out
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its f32 elements as their bit patterns (so -0 and +0
+    differ, and NaNs compare by payload)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def phase_determinism(tmp: str, scan: str):
+    """Phase 3b: the seg main path for DET_EPOCHS epochs through the CLI,
+    its view step at DET_STEP renders run twice from the same state (every
+    parameter, Adam moment and count, absgrads, the step and the
+    generator restored in place between the two): the two runs' gradients
+    (parameters and absgrad sink), and the parameters, both Adam moments
+    and absgrads after the step, bit for bit equal."""
+    from edgegaussians_tpu_torch.train import trainer
+    log(f"== phase 3b: determinism, view step {DET_STEP} of {DET_EPOCHS} "
+        "epochs of the main path run twice from the same state")
+    step = trainer.view_step
+    runs = []
+
+    def twice(state, *args, **kw):
+        if state.step != DET_STEP:
+            return step(state, *args, **kw)
+        with torch.no_grad():
+            saved = {k: v.clone() for k, v in state_tensors(state).items()}
+        counts = dict(state.opt.counts)
+        gen = state.generator.get_state()
+        proj_grad = kw["proj_grad"]
+        for i in range(2):
+            if i:
+                with torch.no_grad():
+                    for k, v in state_tensors(state).items():
+                        v.copy_(saved[k])
+                state.opt.counts = dict(counts)
+                state.step = DET_STEP
+                state.generator.set_state(gen)
+            got = []
+
+            def recorded(*a, **k):
+                got.append(proj_grad(*a, **k))
+                return got[-1]
+            out = step(state, *args, **dict(kw, proj_grad=recorded))
+            _, _, grads, gsink = got[0]
+            with torch.no_grad():
+                after = {f"grad {g}": x.clone() for g, x in grads.items()}
+                after["absgrad sink"] = gsink.clone()
+                after.update({k: v.clone()
+                              for k, v in state_tensors(state).items()})
+            runs.append(after)
+        return out
+
+    trainer.view_step = twice
+    try:
+        _, launches, _, _ = train_cli_run(tmp, scan, DET_EPOCHS,
+                                          "determinism", echo=False)
+    finally:
+        trainer.view_step = step
+    if len(runs) != 2:
+        raise AssertionError(f"view step {DET_STEP} ran {len(runs)} times")
+    a, b = runs
+    differ = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+    if differ:
+        raise AssertionError(f"view step {DET_STEP} run twice from the same "
+                             f"state differs in {differ}")
+    views = DET_EPOCHS * VIEWS + 1
+    expected = no_launches(segpair_fwd=views, segpair_bwd=views,
+                           rank_sum=views)
+    if launches != expected:
+        raise AssertionError(f"launches {launches} of the determinism run, "
+                             f"expected {expected}")
+    log(f"determinism ok: {len(a)} tensors bit-equal (gradients, "
+        f"parameters, Adam moments, absgrads); launches {launches}")
 
 
 def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
@@ -1518,7 +1806,8 @@ def phase_fallback_path(tmp: str, scan: str, profile_dir=None):
                              "expected one after epoch 0")
     dense = 2 * VIEWS * (FALLBACK_EPOCHS - 1)
     expected = no_launches(segpair_fwd=VIEWS, segpair_bwd=VIEWS,
-                           raster_v2_fwd=dense, raster_v2_bwd=dense)
+                           raster_v2_fwd=dense, raster_v2_bwd=dense,
+                           rank_sum=FALLBACK_EPOCHS * VIEWS)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the fallback path, "
                              f"expected {expected}")
@@ -1593,7 +1882,7 @@ def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
                             ORIENT_CUTS["start_dir_loss_at_epoch"])
     views = ORIENT_EPOCHS * VIEWS
     expected = no_launches(segpair_fwd=views, segpair_bwd=views,
-                           knn=fires + 1)
+                           rank_sum=views, knn=fires + 1)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the orientation path, "
                              f"expected {expected} ({fires} direction "
@@ -1618,10 +1907,12 @@ def phase_other_paths(tmp: str, scan: str, profile_dir=None):
     launches and steady-epoch Mpx/s."""
     views = EPOCHS * VIEWS
     expected = {
-        "pair_v4": no_launches(pair_fwd=views, pair_bwd=views),
-        "single_v1": no_launches(raster_v1_fwd=views, raster_v1_bwd=views),
+        "pair_v4": no_launches(pair_fwd=views, pair_bwd=views,
+                               rank_sum=views),
+        "single_v1": no_launches(raster_v1_fwd=views, raster_v1_bwd=views,
+                                 rank_sum=views),
         "pair_prefix": no_launches(raster_v2_fwd=2 * views,
-                                   raster_v2_bwd=2 * views),
+                                   raster_v2_bwd=2 * views, rank_sum=views),
     }
     out = {}
     for path, model in OTHER_PATHS.items():
@@ -1738,7 +2029,8 @@ def phase_band_mode(device):
     launches = {k: v for mod in kernel_modules()
                 for k, v in mod.launch_counts.items()}
     bands_run = len(cams) * BANDS
-    expected = no_launches(segpair_fwd=bands_run, segpair_bwd=bands_run)
+    expected = no_launches(segpair_fwd=bands_run, segpair_bwd=bands_run,
+                           rank_sum=bands_run)
     if launches != expected:
         raise AssertionError(f"launches {launches} of the band renders, "
                              f"expected {expected}")
@@ -1800,7 +2092,8 @@ def phase_view_batch(tmp: str, scan: str):
         training=dict(step_mode="view_batch", view_batch_size=VIEW_BATCH))
     rows = epoch_lines(text, epochs)
     views = epochs * VIEWS
-    expected = no_launches(segpair_fwd=views, segpair_bwd=views)
+    expected = no_launches(segpair_fwd=views, segpair_bwd=views,
+                           rank_sum=views)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the view-batch path, "
                              f"expected {expected}")
@@ -1919,7 +2212,8 @@ def phase_multi_rank(tmp: str, scan: str):
         rel = check_losses_match(rows, single[ref_tag], name)
         per_rank = [json.loads(str(r["launches"])) for r in results]
         views = EPOCHS * VIEWS // n_views
-        expected = no_launches(segpair_fwd=views, segpair_bwd=views)
+        expected = no_launches(segpair_fwd=views, segpair_bwd=views,
+                               rank_sum=views)
         for r, got in enumerate(per_rank):
             if got != expected:
                 raise AssertionError(f"{name}: rank {r} launches {got}, "
@@ -2480,7 +2774,7 @@ def main() -> int:
     ms.update(ms_d)
     bounds.update(bounds_d)
     err["knn"], ms["knn"], bounds["knn"] = phase_knn_kernel(device)
-    for phase in (phase_pair_kernels, phase_v1_kernels):
+    for phase in (phase_pair_kernels, phase_v1_kernels, phase_rank_sum):
         err_p, ms_p, bounds_p = phase(device)
         err.update(err_p)
         ms.update(ms_p)
@@ -2498,6 +2792,7 @@ def main() -> int:
         log(f"scan generated in {time.time() - t0:.1f}s")
         seg_launches, seg_pxs = phase_main_path(tmp, scan,
                                                 args.profile_dir)
+        phase_determinism(tmp, scan)
         dense_launches, dense_pxs = phase_fallback_path(tmp, scan,
                                                         args.profile_dir)
         orient_launches, orient_pxs = phase_orientation_path(
@@ -2525,7 +2820,7 @@ def main() -> int:
     ms.update(ms_l)
     bounds.update(bounds_l)
     from edgegaussians_tpu_torch.ops import (
-        knn, pair, raster_v1, raster_v2, segpair, shard_sum)
+        knn, pair, rank_sum, raster_v1, raster_v2, segpair, shard_sum)
     kernels = []
     for name, source, replaces, launches in (
             ("segpair_fwd", segpair.KERNEL_SOURCE,
@@ -2551,6 +2846,9 @@ def main() -> int:
             ("raster_v1_bwd", raster_v1.KERNEL_SOURCE,
              "edgegaussians_tpu/ops/pallas_raster.py:97",
              others["single_v1"][0]),
+            ("rank_sum", rank_sum.KERNEL_SOURCE,
+             "edgegaussians_tpu/ops/composite.py:136 (_scatter_rows: an "
+             "XLA scatter-add, no Pallas kernel)", seg_launches),
             ("shard_sum", shard_sum.KERNEL_SOURCE,
              "tests/test_vma.py:205, scripts/vma_pallas_repro.py:52",
              {"shard_sum": probe_launches}),

@@ -1,9 +1,10 @@
 // Device helpers shared by the compositor kernels of csrc/segpair.cu (the
-// seg pair runs), csrc/raster_v2.cu (the dense slot frames) and
-// csrc/raster_v1.cu (the v1 log-space frame).
+// seg pair runs), csrc/pair.cu (the v4 pair runs), csrc/raster_v2.cu (the
+// dense slot frames) and csrc/raster_v1.cu (the v1 log-space frame), and
+// the forward kernel of the two pair compositors (run_fwd_kernel).
 //
-// All three walk one 16x16 tile per CTA, one thread per pixel, over depth-ordered
-// features f[0:8] (f32) with the gsplat rules:
+// All four walk one 16x16 tile per CTA, one thread per pixel, over
+// depth-ordered features f[0:8] (f32) with the gsplat rules:
 //   log a = sum_{j<6} f_j * basis_j(px)          (full f32 FMAs)
 //   ok = log a <= f_6 + SIGMA_GUARD_EPS;  a = exp(log a);  ok &= a >= 1/255
 //   a = min(a, 0.999);  t_inc = t * (1 - a);  stop once t_inc < 1e-4
@@ -154,6 +155,88 @@ __device__ __forceinline__ void chain_step(float a, float& t, float& acc) {
   const float t_inc = t * (1.0f - a);
   acc = fmaf(t_inc >= TRANSMITTANCE_EPS ? a : 0.0f, t, acc);
   t = t_inc;
+}
+
+// How a forward row finds its run [s, e) of feats: csrc/segpair.cu's runs
+// are back to back (e = starts[row + 1]); csrc/pair.cu's are followed by
+// pad rows, so their length is counts[row].
+enum class RunEnd { kNextStart, kCount };
+
+constexpr int RUN_FWD_BATCH = 128;  // pairs staged per pass (2 x 4 KB)
+constexpr int RUN_FWD_GROUP = 16;   // pairs side by side
+
+// The forward of the pair compositors (seg and v4), one CTA per frame row
+// and one thread per pixel: the row's run in batches of RUN_FWD_BATCH
+// pairs, double buffered by cp.async; within a batch, the t-free terms of
+// RUN_FWD_GROUP pairs side by side, then the branch-free chain over them in
+// pair order; a zero row at once for an empty run, a warp's skip once its
+// pixels are done and the CTA's exit once all are. counts is read only
+// under RunEnd::kCount. Each source instantiates the one it launches, so
+// the seg forward compiles to the code it had as a kernel of its own.
+template <RunEnd kEnd>
+__global__ void __launch_bounds__(P)
+run_fwd_kernel(const float* __restrict__ feats,
+               const int* __restrict__ starts,
+               const int* __restrict__ counts,
+               const float* __restrict__ basis,
+               float* __restrict__ img) {
+  __shared__ __align__(16) float sf[2][RUN_FWD_BATCH * NF];
+  const int fr = blockIdx.x;
+  const int px = threadIdx.x;
+  const int s = starts[fr];
+  const int e = kEnd == RunEnd::kNextStart ? starts[fr + 1]
+                                           : s + max(counts[fr], 0);
+  float* out = img + static_cast<size_t>(fr) * P + px;
+  if (s >= e) {   // an empty run: a zero row, nothing to stage
+    *out = 0.0f;
+    return;
+  }
+  const bool vec16 = (reinterpret_cast<size_t>(feats) & 15) == 0;
+  stage_async(sf[0], feats + static_cast<size_t>(s) * NF,
+              min(RUN_FWD_BATCH, e - s) * NF, vec16);
+  float b[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
+
+  float t = 1.0f;
+  float acc = 0.0f;
+  int buf = 0;
+  for (int base = s; base < e; base += RUN_FWD_BATCH, buf ^= 1) {
+    const int n = min(RUN_FWD_BATCH, e - base);
+    const int next = base + RUN_FWD_BATCH;
+    // the next batch lands in the other buffer while this one computes;
+    // an empty group keeps the wait below uniform
+    if (next < e)
+      stage_async(sf[buf ^ 1], feats + static_cast<size_t>(next) * NF,
+                  min(RUN_FWD_BATCH, e - next) * NF, vec16);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const float* fb = sf[buf];
+    for (int m0 = 0; m0 < n; m0 += RUN_FWD_GROUP) {
+      // a warp whose pixels are all done skips the rest of the batch
+      if (__all_sync(FULL_MASK, t < TRANSMITTANCE_EPS)) break;
+      // what does not depend on t, for RUN_FWD_GROUP pairs side by side
+      float a[RUN_FWD_GROUP];
+#pragma unroll
+      for (int r = 0; r < RUN_FWD_GROUP; ++r) {
+        const float* f = fb + (m0 + r) * NF;
+        const float la = log_alpha(f, b);
+        const float x = expf(la);
+        const bool ok = m0 + r < n && la <= f[6] + SIGMA_GUARD_EPS &&
+                        x >= ALPHA_THRESHOLD;
+        a[r] = ok ? fminf(x, ALPHA_CLAMP) : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < RUN_FWD_GROUP; ++r) chain_step(a[r], t, acc);
+    }
+    // the CTA stops once every pixel is done; also the barrier before the
+    // next batch's prefetch overwrites this batch's buffer
+    if (__syncthreads_and(t < TRANSMITTANCE_EPS)) break;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  *out = acc;
 }
 
 }  // namespace

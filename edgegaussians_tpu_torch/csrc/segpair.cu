@@ -47,12 +47,14 @@
 //    x 6 values) it cost a CTA ~500 warp instructions per pair against ~120
 //    on the pixel math.
 //
-// What the design does about them. Both kernels: one CTA per frame row, one
-// thread per pixel, so every run is walked by exactly one CTA and needs no
-// cross-CTA carry or atomics. Pairs are staged in shared memory in batches
-// (coalesced loads, broadcast reads). A pixel stops once its transmittance
-// falls below 1e-4, which is exact because t only falls, and the CTA stops
-// when all its pixels have (__syncthreads_and).
+// What the design does about them. The forward is compositor.cuh's
+// run_fwd_kernel (RunEnd::kNextStart), which csrc/pair.cu launches too.
+// Both kernels: one CTA per frame row, one thread per pixel, so every run
+// is walked by exactly one CTA and needs no cross-CTA carry or atomics.
+// Pairs are staged in shared memory in batches (coalesced loads, broadcast
+// reads). A pixel stops once its transmittance falls below 1e-4, which is
+// exact because t only falls, and the CTA stops when all its pixels have
+// (__syncthreads_and).
 //
 // Splitting long runs across CTAs against (1) was measured for the forward
 // and not taken: 64-pair work items of the flat pair array from a ticket
@@ -103,75 +105,7 @@
 
 namespace {
 
-constexpr int FWD_BATCH = 128;   // pairs staged per pass (2 x 4 KB)
 constexpr int BWD_BATCH = 64;    // pairs staged per pass (2 x 2 KB)
-constexpr int FWD_GROUP = 16;    // forward: pairs side by side
-
-// The forward walks its run in batches of FWD_BATCH pairs, double buffered
-// as the backward's; within a batch, the t-free terms of FWD_GROUP pairs
-// side by side, then the chain over them in pair order.
-__global__ void __launch_bounds__(P)
-segpair_fwd_kernel(const float* __restrict__ feats,
-                   const int* __restrict__ s_f,
-                   const float* __restrict__ basis,
-                   float* __restrict__ img) {
-  __shared__ __align__(16) float sf[2][FWD_BATCH * NF];
-  const int fr = blockIdx.x;
-  const int px = threadIdx.x;
-  const int s = s_f[fr];
-  const int e = s_f[fr + 1];
-  float* out = img + static_cast<size_t>(fr) * P + px;
-  if (s >= e) {   // an empty run: a zero row, nothing to stage
-    *out = 0.0f;
-    return;
-  }
-  const bool vec16 = (reinterpret_cast<size_t>(feats) & 15) == 0;
-  stage_async(sf[0], feats + static_cast<size_t>(s) * NF,
-              min(FWD_BATCH, e - s) * NF, vec16);
-  float b[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) b[j] = basis[j * P + px];
-
-  float t = 1.0f;
-  float acc = 0.0f;
-  int buf = 0;
-  for (int base = s; base < e; base += FWD_BATCH, buf ^= 1) {
-    const int n = min(FWD_BATCH, e - base);
-    const int next = base + FWD_BATCH;
-    // the next batch lands in the other buffer while this one computes;
-    // an empty group keeps the wait below uniform
-    if (next < e)
-      stage_async(sf[buf ^ 1], feats + static_cast<size_t>(next) * NF,
-                  min(FWD_BATCH, e - next) * NF, vec16);
-    else
-      asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-    const float* fb = sf[buf];
-    for (int m0 = 0; m0 < n; m0 += FWD_GROUP) {
-      // a warp whose pixels are all done skips the rest of the batch
-      if (__all_sync(FULL_MASK, t < TRANSMITTANCE_EPS)) break;
-      // what does not depend on t, for the FWD_GROUP pairs side by side
-      float a[FWD_GROUP];
-#pragma unroll
-      for (int r = 0; r < FWD_GROUP; ++r) {
-        const float* f = fb + (m0 + r) * NF;
-        const float la = log_alpha(f, b);
-        const float x = expf(la);
-        const bool ok = m0 + r < n && la <= f[6] + SIGMA_GUARD_EPS &&
-                        x >= ALPHA_THRESHOLD;
-        a[r] = ok ? fminf(x, ALPHA_CLAMP) : 0.0f;
-      }
-#pragma unroll
-      for (int r = 0; r < FWD_GROUP; ++r) chain_step(a[r], t, acc);
-    }
-    // the CTA stops once every pixel is done; also the barrier before the
-    // next batch's prefetch overwrites this batch's buffer
-    if (__syncthreads_and(t < TRANSMITTANCE_EPS)) break;
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  *out = acc;
-}
 
 __global__ void __launch_bounds__(P)
 segpair_bwd_kernel(const float* __restrict__ feats,
@@ -295,8 +229,9 @@ extern "C" {
 int segpair_fwd(const float* feats, const int* s_f, const float* basis,
                 float* img, int num_rows, void* stream) {
   if (num_rows > 0) {
-    segpair_fwd_kernel<<<num_rows, P, 0, static_cast<cudaStream_t>(stream)>>>(
-        feats, s_f, basis, img);
+    run_fwd_kernel<RunEnd::kNextStart>
+        <<<num_rows, P, 0, static_cast<cudaStream_t>(stream)>>>(
+            feats, s_f, nullptr, basis, img);
   }
   return static_cast<int>(cudaGetLastError());
 }

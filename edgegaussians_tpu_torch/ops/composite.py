@@ -11,8 +11,9 @@ gather each tile's slots by rank, build the per-slot features, composite,
 and in backward return d packed_sorted plus, through the zero ``sink
 [N,2]``, each Gaussian's absgrad: the sum over its slots of |d means2d|
 (columns 3:5 of the packed rows) on valid slots. Both come out of one
-``index_add_`` of 10-column rows by depth rank (the JAX version's fused
-``_scatter_rows``), then absgrad is unpermuted by ``order``. The |.| is
+sum of 10-column rows by depth rank (the JAX version's fused
+``_scatter_rows``; here ``ops/rank_sum.py``, in slot order and the same
+bits on every launch), then absgrad is unpermuted by ``order``. The |.| is
 taken per slot inside backward: autograd through the gather would sum
 signed values.
 
@@ -24,8 +25,9 @@ gathered slot by slot from decoded ranks, or, with pair-prefix tables
 (``bins2.pair_rows``), built by scattering the B budget pairs into a zero
 ``[T*k1 + t2*k2, 8]`` frame (un-hit slots keep validity 0, so alpha 0);
 that backward gathers the B pairs' rows of the gradient frame and adds
-them by depth rank. The JAX version's dead ``prior`` argument
-(composite.py:391) and its ``EG_*`` layout knobs are not carried over.
+them by depth rank, pairs past the frame into a drop row ``n``. The JAX
+version's dead ``prior`` argument (composite.py:391) and its ``EG_*``
+layout knobs are not carried over.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from edgegaussians_tpu_torch.ops import raster_v1, raster_v2
+from edgegaussians_tpu_torch.ops.rank_sum import rank_sum
 from edgegaussians_tpu_torch.ops.segpair import build_pair_features_vjp
 from edgegaussians_tpu_torch.ops.tiles import (
     TileBins, TileBinsTwoLevel, build_tile_features)
@@ -62,14 +65,15 @@ def tile_features_vjp(gathered, origins, validf, dfeats):
 
 def scatter_slot_grads(levels, order: torch.Tensor, n: int):
     """[(dgathered [T,K,8], validf [T,K], ranks [T,K])] -> (dpacked [N,8]
-    in rank order, dsink [N,2] in Gaussian-id order): one index_add_ of
-    rows [dg, |dg[..., 3:5]| * validf] by depth rank."""
+    in rank order, dsink [N,2] in Gaussian-id order): one deterministic
+    sum (ops/rank_sum.py) of the valid slots' rows [dg, |dg[..., 3:5]|]
+    by depth rank (an invalid slot's row is zero)."""
     rows = torch.cat([torch.cat([dg, torch.abs(dg[..., 3:5])
                                  * vf[..., None]], dim=-1).reshape(-1, 10)
                       for dg, vf, _ in levels])
     idx = torch.cat([r.reshape(-1) for _, _, r in levels])
-    acc = torch.zeros((n, 10), dtype=rows.dtype, device=rows.device)
-    acc.index_add_(0, idx, rows)
+    valid = torch.cat([vf.reshape(-1) > 0 for _, vf, _ in levels])
+    acc = rank_sum(rows, idx, n, valid)
     dsink = torch.zeros((n, 2), dtype=rows.dtype, device=rows.device)
     dsink[order] = acc[:, 8:10]
     return acc[:, :8], dsink
@@ -174,19 +178,19 @@ def pair_prefix_grads(dg1: torch.Tensor, dg2: torch.Tensor,
     """(dpacked [N,8] in rank order, dsink [N,2] in Gaussian-id order)
     from the frame's gradient rows (composite.py:417-434): the B pairs'
     rows gathered from the gradient frame, [d, |d[:,3:5]|] added by depth
-    rank; pairs past the frame are dropped. Every gathered row is a live
-    slot, so no validity mask enters absgrad."""
+    rank; pairs past the frame take the index ``n``, which the sum drops.
+    Every gathered row is a live slot, so no validity mask enters
+    absgrad."""
     frame = torch.cat([dg1.reshape(-1, dg1.shape[-1]),
                        dg2.reshape(-1, dg2.shape[-1])])
     r_rows = frame.shape[0]
     rows8 = frame[torch.clamp(bins2.pair_rows, 0, r_rows - 1)]
     rows = torch.cat([rows8, torch.abs(rows8[:, 3:5])], dim=-1)
     idx = torch.where(bins2.pair_rows < r_rows, bins2.pair_ranks, n)
-    acc = rows.new_zeros((n + 1, 10))
-    acc.index_add_(0, idx, rows)
+    acc = rank_sum(rows, idx, n)
     dsink = rows.new_zeros((n, 2))
-    dsink[bins2.order] = acc[:n, 8:10]
-    return acc[:n, :8], dsink
+    dsink[bins2.order] = acc[:, 8:10]
+    return acc[:, :8], dsink
 
 
 def two_level_frame(packed_sorted: torch.Tensor, bins2: TileBinsTwoLevel,

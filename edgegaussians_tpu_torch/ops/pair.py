@@ -196,7 +196,8 @@ class PairRender(torch.autograd.Function):
     gradient port whose cotangent reports each Gaussian's accumulated
     |d means2d| (absgrad). The backward masks the kernel's rows by
     ``pair_valid``, runs the feature VJP and adds ``[dsrc, |dsrc[:,3:5]|]``
-    by ``pair_ranks`` in one ``index_add_`` (pallas_pair.py:443-472).
+    by ``pair_ranks`` in one deterministic sum (``ops/rank_sum.py``;
+    pallas_pair.py:443-472).
     """
 
     @staticmethod

@@ -30,6 +30,7 @@ import torch
 from edgegaussians_tpu_torch.ops import _build
 from edgegaussians_tpu_torch.ops.projection import (
     ALPHA_CLAMP, ALPHA_THRESHOLD, SIGMA_GUARD_EPS, TRANSMITTANCE_EPS)
+from edgegaussians_tpu_torch.ops.rank_sum import rank_sum
 from edgegaussians_tpu_torch.ops.tiles import PairBins
 
 PIXELS = 256        # one 16x16 tile; the kernels run one thread per pixel
@@ -226,14 +227,14 @@ def pair_grads_to_packed(dfeats, src, ox, oy, pbins: PairBins, n: int):
     """Per-pair feature gradients -> (dpacked [N,8] in rank order,
     dsink [N,2] in Gaussian-id order), as _sp_bwd (pallas_segpair.py:
     609-624) does: VJP through the features, rows [dsrc, |dsrc[:,3:5]|],
-    one index_add_ by pair rank. The |.| is taken per pair before the
-    sum, which is what absgrad means."""
+    one deterministic sum of the valid pairs' rows by pair rank
+    (ops/rank_sum.py). The |.| is taken per pair before the sum, which is
+    what absgrad means."""
     valid = pbins.pair_valid[:, None]
     dfeats = torch.where(valid, dfeats, torch.zeros_like(dfeats))
     dsrc = build_pair_features_vjp(src, ox, oy, dfeats)
     rows = torch.cat([dsrc, torch.abs(dsrc[:, 3:5])], dim=-1)     # [B,10]
-    acc = torch.zeros((n, 10), dtype=rows.dtype, device=rows.device)
-    acc.index_add_(0, pbins.pair_ranks, rows)
+    acc = rank_sum(rows, pbins.pair_ranks, n, pbins.pair_valid)
     dsink = torch.zeros((n, 2), dtype=rows.dtype, device=rows.device)
     dsink[pbins.order] = acc[:, 8:10]
     return acc[:, :8], dsink

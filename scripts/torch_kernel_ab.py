@@ -22,6 +22,11 @@ repository's ``chip_smoke.py`` helpers:
   v1_cases): both v1 kernels, ms per camera, one CTA of each alone on
   each camera's longest row (the most slots without the -1e30 marker; its
   bits checked against that row of the whole launch), and digests;
+- the same cameras' v4 block-window tables at cap 768, budget 49152,
+  block_tiles 8 (chip_smoke.py's pair_cases): both v4 pair kernels, ms
+  per camera, one CTA of each alone on each camera's longest run (its
+  bits checked against that row of the whole launch), and digests (the
+  backward's over the rows inside runs, the only rows it writes);
 - the fixture's 12740 means padded to 16384 rows (k = 6, 11, 15) and the
   131072-row cloud (k = 6);
 - the onehot probe on the script's run beside ``onehot @ c`` (both also
@@ -31,7 +36,7 @@ CUDA events, median of 5 blocks; the ``*_device_ms`` and ``*_alone_ms``
 keys are device time of calls queued behind a sleeping kernel
 (chip_smoke.py's queued_ms), which the wrappers' ~20 us of host work a
 call does not pace. Each turn prints one JSON line with its times and the
-compiler's register and shared-memory report of the five sources; the
+compiler's register and shared-memory report of the six sources; the
 run ends with a table of the turns and the card's name and power limit.
 A tree is a checkout of the repository, e.g. the parent commit unpacked
 with ``git archive`` into a git-ignored directory, or a directory holding
@@ -106,6 +111,7 @@ def turn(root: str) -> dict:
                for c in cases])
         out.update(dense_turn(cs, device))
         out.update(v1_turn(cs, device))
+        out.update(pair_turn(cs, device))
         t = probes.case_tensors(ONEHOT_CASE, device)
         lib = cs.probe_library(ONEHOT_CASE, t)
         out["probe_onehot_ms"] = cs.cuda_ms(
@@ -117,7 +123,8 @@ def turn(root: str) -> dict:
         lambda: probes.probe_onehot(t["r8"], t["c"]),
         "probe_onehot_kernel")[0]
     out["probe_onehot_library_device_ms"] = cs.profiled_device(lib, "")[0]
-    for name in ("segpair", "raster_v2", "raster_v1", "knn", "lab_probes"):
+    for name in ("segpair", "raster_v2", "raster_v1", "pair", "knn",
+                 "lab_probes"):
         log = str(_build.library_path(name)) + ".log"
         out[f"{name}_ptxas"] = [ln.strip() for ln in open(log)
                                 if "registers" in ln or "Compiling" in ln
@@ -230,6 +237,43 @@ def v1_turn(cs, device) -> dict:
         out[f"raster_v1_{k}_longest_row_alone_ms"] = alone
     out["raster_v1_longest_row_live"] = [
         int(live_slots(one).sum()) for _, one in longest]
+    torch.cuda.synchronize()
+    return out
+
+
+def pair_turn(cs, device) -> dict:
+    """The v4 pair kernels on the fixture's block-window tables
+    (chip_smoke.py's phase 2 pair inputs, the backward on its total): ms
+    per camera, one CTA of each alone on each camera's longest run, and a
+    digest of each kernel's outputs."""
+    import torch
+    from edgegaussians_tpu_torch.ops import tiles
+    cases = cs.pair_cases(device)
+    basis = tiles.pixel_basis(16, device=device)
+    for c in cases:
+        c["total"] = (0.5 + 0.5 * c["g"]).contiguous()
+    out = {}
+    rows = cs.pair_longest_rows(cases, device)
+    for k in ("fwd", "bwd"):
+        def calls():
+            return [cs.pair_call(k, cs.pair_args(c), basis) for c in cases]
+        out[f"pair_{k}_ms"] = cs.cuda_ms(calls, 20) / len(cases)
+        out[f"pair_{k}_device_ms"] = cs.queued_ms(calls, 20) / len(cases)
+        out[f"pair_{k}_digest"] = digest(
+            x if k == "fwd" else x[c["pbins"].pair_valid]
+            for c, x in zip(cases, calls()))
+        alone = []
+        for c, (r, one) in zip(cases, rows):
+            whole = cs.pair_call(k, cs.pair_args(c), basis)
+            s0, n = int(c["sfp"][r]), int(c["counts"][r])
+            mine = whole[r:r + 1] if k == "fwd" else whole[s0:s0 + n]
+            if not torch.equal(cs.pair_call(k, one, basis), mine):
+                raise AssertionError(f"pair_{k}: the longest run alone "
+                                     "differs from its rows of the launch")
+            alone.append(cs.queued_ms(lambda: cs.pair_call(k, one, basis),
+                                      20))
+        out[f"pair_{k}_longest_run_alone_ms"] = alone
+    out["pair_longest_run"] = [int(one[2]) for _, one in rows]
     torch.cuda.synchronize()
     return out
 

@@ -254,11 +254,11 @@ def task_cli(args, out):
     training CLI in this group, each rank's launches and final state."""
     from edgegaussians_tpu_torch.cli import train as train_cli
     from edgegaussians_tpu_torch.ops import (
-        knn, pair, raster_v1, raster_v2, segpair, shard_sum)
+        knn, pair, rank_sum, raster_v1, raster_v2, segpair, shard_sum)
     device = torch.device(args.device)
     task_probe(out, device)
     out["collectives"] = np.array(json.dumps(probe_collectives(device)))
-    mods = (segpair, raster_v2, knn, pair, raster_v1, shard_sum)
+    mods = (segpair, raster_v2, knn, pair, raster_v1, rank_sum, shard_sum)
     for mod in mods:
         mod.reset_launch_counts()
     t0 = time.time()

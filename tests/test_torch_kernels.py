@@ -1,7 +1,8 @@
 """The Hopper kernels of the port (edgegaussians_tpu_torch/csrc/segpair.cu,
 csrc/raster_v2.cu, csrc/knn.cu, csrc/pair.cu, csrc/raster_v1.cu,
-csrc/shard_sum.cu, and the kernel lab's csrc/lab_chunked.cu and
-csrc/lab_probes.cu) held to their plain PyTorch versions, on a GPU.
+csrc/shard_sum.cu, csrc/rank_sum.cu, and the kernel lab's
+csrc/lab_chunked.cu and csrc/lab_probes.cu) held to their plain PyTorch
+versions, on a GPU.
 
 Every test here needs the card and skips where torch sees none. The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -19,7 +20,8 @@ dense kernels' t_out where the plain value is >= 1e-4 rtol 1e-5, and
 below 1e-4 on both sides elsewhere (its value there depends on the
 implementation, ops/raster_v2.py); whole-rasterizer gradients atol 3e-4,
 rtol 2e-3 (tests/test_pallas_segpair.py's seg tolerances; the pair rows
-reach [N,8] through index_add_ atomics). The kNN kernel and its plain
+reach [N,8] through the row sum, in the CPU path's order, so the sides
+differ by the compositor kernels' last bits). The kNN kernel and its plain
 version round every product and sum of d^2 alike and share the tie rule,
 so they agree exactly, whatever the key slices and the live-key
 compaction of the kernel. The fired view step: parameters rtol 1e-4 and
@@ -47,8 +49,17 @@ at their edges, the same bits from two launches. The dense kernels at K =
 gates above on counts around their groups and batches, past K and
 negative, on stops at group and batch edges and on rows saturated on
 entry; exact zeros, t_out = t_in and the same bits from two launches
-where the kernels' contract says so. Every one-kernel-a-call check
-counts the host's launch records (_check_one_kernel_per_call).
+where the kernels' contract says so. The v4 pair kernels on runs around
+their groups and batches, empty runs, pads of real features after every
+run, stops on group and batch edges and a misaligned feats: the image and
+dfeats gates above, the rows past a stop exactly zero, the same bits from
+two launches. The row sum of the compositors' backwards (rank_sum): the
+CPU plain version's bits exactly (both add each output's rows in row
+order), the same bits from two launches, and within 1e-5 of max-abs of
+the plain version on the card (index_add_ atomics); two backward passes
+of the seg, v4 pair and two-level renders give the same dpacked and dsink
+bits. Every one-kernel-a-call check counts the host's launch records
+(_check_one_kernel_per_call).
 """
 
 import numpy as np
@@ -1671,3 +1682,255 @@ def test_raster_v1_wrappers_launch_one_kernel_per_call(device, kernel):
     key = f"raster_v1_{kernel}"
     _check_one_kernel_per_call(call, raster_v1.launch_counts, key,
                                f"{key}_kernel")
+
+
+# -- the v4 pair kernels' batches, groups, stops and pads -------------------
+
+# run lengths around the 16-pair groups, the backward's 64-pair and the
+# forward's 128-pair batches, up to the 768 cap
+PAIR_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300, 768]
+# (run lengths, stops): a stop (row, k) makes every pixel of the row stop
+# at its pair k, on and around group and batch edges
+PAIR_SHAPES = {
+    "lengths": (PAIR_LENGTHS, []),
+    "empty": ([0, 5, 0, 0, 129, 0, 1], []),
+    "stops": ([300, 200, 768, 64, 129, 70],
+              [(0, 16), (1, 64), (2, 129), (3, 1), (4, 128), (5, 65)]),
+}
+PAIR_PADS = (3, 0, 77, 1)    # pad rows after each run, in turn
+
+
+def _pair_shape(name, seed=0):
+    """(feats [B,8], sfp [R] int32, counts [R] int32, walked [B] bool,
+    stops) of PAIR_SHAPES[name]: runs of faint broad pairs (as the seg
+    forward's tests), which pixels walk to the end unless stopped; each
+    run followed by pad rows holding an opaque Gaussian over the whole
+    tile, which a walk past counts[r] would show in the image; at each
+    stop (row, k) two opaque pairs at k - 1 and k (alpha 0.995 on every
+    pixel)."""
+    counts, stops = PAIR_SHAPES[name]
+    r = np.random.default_rng(seed)
+    pads = np.resize(np.asarray(PAIR_PADS), len(counts))
+    starts = np.concatenate([[0], np.cumsum(np.asarray(counts) + pads)])
+    b = int(starts[-1]) + 5
+    src = np.zeros((b, 8), np.float32)
+    src[:, 0] = r.uniform(0.004, 0.05, b)
+    src[:, 2] = r.uniform(0.004, 0.05, b)
+    src[:, 1] = r.uniform(-0.5, 0.5, b) * np.sqrt(src[:, 0] * src[:, 2])
+    src[:, 3:5] = r.uniform(-6.0, 22.0, (b, 2))
+    src[:, 5] = np.log(r.uniform(0.004, 0.02, b))
+    walked = np.zeros(b, bool)
+    for s0, n in zip(starts[:-1], counts):
+        walked[s0:s0 + n] = True
+    src[~walked, :6] = [0.0, 0.0, 0.0, 8.0, 8.0, np.log(0.99)]
+    for row, k in stops:
+        at = starts[row] + k
+        src[at - 1:at + 1, :6] = [0.0, 0.0, 0.0, 0.0, 0.0, np.log(0.995)]
+    zero = torch.zeros(b)
+    feats = segpair.build_pair_features(torch.from_numpy(src), zero, zero)
+    return (feats.contiguous(), torch.from_numpy(starts[:-1].astype(np.int32)),
+            torch.from_numpy(np.asarray(counts, np.int32)),
+            torch.from_numpy(walked), stops)
+
+
+def _pair_shape_on(name, device, seed=0):
+    return tuple(x.to(device) if torch.is_tensor(x) else x
+                 for x in _pair_shape(name, seed))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", list(PAIR_SHAPES))
+def test_pair_kernels_on_batches_stops_and_pads(device, name, aligned):
+    """Both v4 kernels against their plain versions (image atol 1e-5,
+    dfeats 1e-4 of max-abs) on runs of every length around the groups and
+    batches, empty runs, pad rows of real (opaque) features after every
+    run that must not be read, rows whose every pixel stops on a group or
+    batch edge (checked on the plain version's transmittance; the rows
+    past the stop exactly zero), and a feats view that is not 16-byte
+    aligned (the 4-byte staging path). Two launches give the same bits."""
+    feats, sfp, counts, walked, stops = _pair_shape_on(name, device)
+    if not aligned:
+        feats = _misaligned(feats)
+    basis = tiles.pixel_basis(16, device=device)
+    img = pair.pair_fwd(feats, sfp, counts, basis)
+    again = pair.pair_fwd(feats, sfp, counts, basis)
+    torch.cuda.synchronize()
+    ref = pair.pair_fwd_ref(feats, sfp, counts, basis)
+    torch.testing.assert_close(img, ref, rtol=0, atol=1e-5)
+    assert torch.equal(img, again)
+    assert bool((img[counts == 0] == 0).all())
+    gen = torch.Generator(device=device).manual_seed(1)
+    g = torch.rand((sfp.shape[0], 256), generator=gen, device=device) - 0.5
+    d = pair.pair_bwd(feats, sfp, counts, basis, g, ref)
+    d_again = pair.pair_bwd(feats, sfp, counts, basis, g, ref)
+    torch.cuda.synchronize()
+    d_r = pair.pair_bwd_ref(feats, sfp, counts, basis, g, ref)
+    assert torch.equal(d[walked].view(torch.int32),
+                       d_again[walked].view(torch.int32))
+    scale = float(d_r.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(d[walked], d_r[walked], rtol=0,
+                               atol=1e-4 * scale)
+    assert bool((d[walked][:, 6:] == 0).all())
+    maxrun = int(counts.max())
+    _, _, _, keep, _, slot_valid = segpair.run_alpha(feats, sfp, counts,
+                                                     basis, maxrun)
+    for row, k in stops:
+        stopped = (~keep[row]) & slot_valid[row][:, None]     # [M,256]
+        assert bool((stopped.float().argmax(0) == k).all())
+        s0, n = int(sfp[row]), int(counts[row])
+        assert bool((d[s0 + k:s0 + n] == 0).all())
+        assert bool((d_r[s0 + k:s0 + n] == 0).all())
+
+
+def test_pair_kernels_write_every_row_of_a_run_and_no_pad(device,
+                                                          monkeypatch):
+    """torch.empty and torch.empty_like returning NaNs: every image row
+    (empty runs' zeros included) and every dfeats row inside a run (zeros
+    past the stops included) is written; pad rows and the tail stay as
+    allocated, since the caller masks them by pair validity."""
+    feats, sfp, counts, walked, _ = _pair_shape_on("stops", device)
+    basis = tiles.pixel_basis(16, device=device)
+    g = torch.ones((sfp.shape[0], 256), device=device)
+    total = pair.pair_fwd_ref(feats, sfp, counts, basis)
+    for name in ("empty", "empty_like"):
+        alloc = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _alloc=alloc, **kw:
+                            _alloc(*a, **kw).fill_(float("nan")))
+    img = pair.pair_fwd(feats, sfp, counts, basis)
+    d = pair.pair_bwd(feats, sfp, counts, basis, g, total)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all())
+    assert bool(torch.isfinite(d[walked]).all())
+    assert bool(torch.isnan(d[~walked]).all())
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_pair_wrappers_launch_one_kernel_per_call(device, kernel):
+    """Each call of a v4 pair wrapper launches its kernel and nothing else
+    (counted on the host's launch records: _check_one_kernel_per_call)."""
+    feats, sfp, counts, _, _ = _pair_shape_on("lengths", device)
+    basis = tiles.pixel_basis(16, device=device)
+    if kernel == "fwd":
+        def call():
+            pair.pair_fwd(feats, sfp, counts, basis)
+    else:
+        g = torch.ones((sfp.shape[0], 256), device=device)
+        total = pair.pair_fwd_ref(feats, sfp, counts, basis)
+
+        def call():
+            pair.pair_bwd(feats, sfp, counts, basis, g, total)
+    # the forward is compositor.cuh's run_fwd_kernel, shared with the seg
+    # forward
+    key = f"pair_{kernel}"
+    _check_one_kernel_per_call(call, pair.launch_counts, key,
+                               {"fwd": "run_fwd_kernel",
+                                "bwd": "pair_bwd_kernel"}[kernel])
+
+
+# -- the deterministic per-Gaussian row sum ----------------------------------
+
+# (seed, rows, outputs): collisions; the seg path's budget at the ABC
+# capacity; a dense two-level frame's slot count; no rows at all
+RANK_SUM_CASES = [(0, 4000, 300), (1, 49152, 16384), (2, 401920, 16384),
+                  (3, 0, 16)]
+
+
+@pytest.mark.parametrize("order", ["random", "reverse", "shuffled"])
+@pytest.mark.parametrize("seed,b,n", RANK_SUM_CASES)
+def test_rank_sum_kernel_is_the_cpu_plain_version_bit_for_bit(device, seed,
+                                                              b, n, order):
+    """The kernel adds each output's rows in row order, as the CPU's
+    index_add_ does, so it gives the plain version's bits on the CPU, and
+    the same bits on a second launch; the plain version on the card
+    (index_add_ atomics) agrees within 1e-5 of its max-abs."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    from test_torch_rank_sum import _case
+    rows, idx, valid = _case(seed, b, n, order=order)
+    cpu = rs.rank_sum(rows, idx, n, valid)
+    before = rs.launch_counts["rank_sum"]
+    got = rs.rank_sum(rows.to(device), idx.to(device), n, valid.to(device))
+    again = rs.rank_sum(rows.to(device), idx.to(device), n,
+                        valid.to(device))
+    torch.cuda.synchronize()
+    assert rs.launch_counts["rank_sum"] == before + 2
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    plain = rs.rank_sum_ref(rows.to(device), idx.to(device), n,
+                            valid.to(device))
+    scale = max(float(cpu.abs().max()) if b else 0.0, 1e-30)
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-5 * scale)
+
+
+def test_rank_sum_wrapper_checks_inputs(device):
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    rows = torch.ones((10, 10), device=device)
+    idx = torch.zeros(10, dtype=torch.int64, device=device)
+    with pytest.raises(TypeError):
+        rs.rank_sum(rows.double(), idx, 4)
+    with pytest.raises(ValueError):
+        rs.rank_sum(rows.t(), idx, 4)
+    with pytest.raises(ValueError):
+        rs.rank_sum(rows, idx[:5], 4)
+    with pytest.raises(ValueError):
+        rs.rank_sum(rows, idx.cpu(), 4)
+
+
+def _render_case(path, device):
+    """(render(packed_sorted, sink) -> image, packed_sorted, ranks of the
+    pairs or slots) of the cluster scene on one of the compositor paths
+    whose backward ends in the row sum."""
+    from edgegaussians_tpu_torch.ops import composite
+    arrays = [torch.from_numpy(a).to(device)
+              for a in _scene(**SCENES["cluster"][0])]
+    with torch.no_grad():
+        proj = project_gaussians(*arrays, W, H)
+        packed = tiles.pack_gaussian_render_data(proj)
+    origins = tiles.tile_origins(W, H, 16, device=device)
+    basis = tiles.pixel_basis(16, device=device)
+    if path == "two_level":
+        bins2 = tiles.bin_gaussians_two_level(proj, W, H, 16, 16, 64, 4,
+                                              occupancy_sort=True)
+        origins_f = origins[bins2.tile_perm]
+        ranks = torch.cat([bins2.ranks1[bins2.counts1[:, None] > torch.arange(
+            16, device=device)], bins2.ranks2[bins2.counts2[:, None]
+                                              > torch.arange(64,
+                                                             device=device)]])
+        return (lambda p, s: composite.TileRenderTwoLevel.apply(
+            p, bins2, origins_f, basis, s), packed[bins2.order], ranks)
+    pb = tiles.bin_pairs_frame_order(
+        proj, W, H, 16, 512, 2048,
+        block_tiles=pair.BLOCK_TILES if path == "pair_v4" else 0)
+    fn = pair.PairRender if path == "pair_v4" else segpair.SegpairRender
+    return (lambda p, s: fn.apply(p, pb, origins, basis, s),
+            packed[pb.order], pb.pair_ranks[pb.pair_valid])
+
+
+@pytest.mark.parametrize("path", ["seg", "pair_v4", "two_level"])
+def test_backward_row_sums_are_bit_equal_across_launches(device, path):
+    """Two backward passes of SegpairRender, PairRender and the two-level
+    render on the same inputs give the same dpacked and dsink bits: the
+    per-Gaussian sums of rows that collide on one rank (checked: some
+    Gaussians have several) run through the row-sum kernel, one launch a
+    backward, with no atomics."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    render, packed_sorted, ranks = _render_case(path, device)
+    assert int(torch.bincount(ranks).max()) > 1
+    n = packed_sorted.shape[0]
+
+    def grads():
+        p = packed_sorted.clone().requires_grad_()
+        sink = torch.zeros((n, 2), device=device, requires_grad=True)
+        img = render(p, sink)
+        w = (torch.arange(img.numel(), device=device, dtype=torch.float32)
+             .reshape(img.shape) % 7) / 7.0 + 0.3
+        return torch.autograd.grad((img * w).sum(), [p, sink])
+
+    before = rs.launch_counts["rank_sum"]
+    first, second = grads(), grads()
+    torch.cuda.synchronize()
+    assert rs.launch_counts["rank_sum"] == before + 2
+    for a, b in zip(first, second):
+        assert float(a.abs().max()) > 0
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

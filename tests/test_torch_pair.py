@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from test_pallas_segpair import _cluster_scene, _scene
+from test_torch_kernels import PAIR_SHAPES, _pair_shape
 from test_torch_segpair import (
     _overflow_scene_64x48, _to_torch_bins, _weighted_loss)
 
@@ -209,6 +210,33 @@ def test_pair_plain_backward_is_the_gradient_of_plain_forward():
                                atol=1e-4 * scale)
     # rows outside every run (pads, the budget tail) are zero
     assert torch.all(d_suffix[~pb.pair_valid] == 0)
+
+
+@pytest.mark.parametrize("name", list(PAIR_SHAPES))
+def test_pair_plain_backward_is_the_gradient_on_the_kernel_test_shapes(
+        name):
+    """The unfolded suffix form against autograd through the cumprod
+    forward on the GPU tests' shapes (tests/test_torch_kernels.py
+    PAIR_SHAPES: runs around the kernels' groups and batches, empty runs,
+    pads of real features, every pixel stopping on group and batch
+    edges), the yardstick those tests hold the kernels to. Tolerance as
+    above; rows outside every run and past a stop are zero."""
+    feats, sfp, counts, walked, stops = _pair_shape(name)
+    basis = tiles.pixel_basis(16)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (sfp.shape[0], 256)).astype(np.float32))
+    f = feats.clone().requires_grad_()
+    img = pair.pair_fwd_ref(f, sfp, counts, basis)
+    (d_auto,) = torch.autograd.grad((img * g).sum(), [f])
+    d_suffix = pair.pair_bwd_ref(feats, sfp, counts, basis, g, img.detach())
+    scale = float(d_auto[:, :6].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(d_suffix[:, :6], d_auto[:, :6], rtol=0,
+                               atol=1e-4 * scale)
+    assert torch.all(d_suffix[~walked] == 0)
+    for row, k in stops:
+        s0, n = int(sfp[row]), int(counts[row])
+        assert torch.all(d_suffix[s0 + k:s0 + n] == 0)
 
 
 RASTER_CASES = {
