@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero:
 1. Environment and build: torch / CUDA / triton / nvcc versions, the card's
    name and power limit, then every kernel source of
    ``edgegaussians_tpu_torch/csrc/`` built at once, one nvcc each (timed,
-   with the compiler's register and shared-memory report).
+   with the compiler's register and shared-memory report). The smoke's
+   training runs write no TensorBoard logs (tensorboardX is made
+   unimportable), so no path's launches or epochs include the trainer's
+   view-0 render of every 5th epoch, whatever is installed.
 2. The seg compositor kernels against their plain PyTorch versions at full
    size: the 5 cameras of ``bench_fixture/abc_00004926.npz`` (12740
    Gaussians, 800x800, cap 768, pair budget 49152), forward and backward.
@@ -134,11 +137,32 @@ Phases, in order; any failure exits non-zero:
    shard-sum kernel's and torch.sum's device times. Every torch.profiler
    window of the run is in phase 8, after the in-process training runs.
 
+9. The DTU recipe at full width (``configs/DTU.json``): the tracked
+   DTU-shaped scan ``synthetic_data/DTU_synth/data/dtu_s0`` (30 views at
+   1600x1200, 2498 SfM seeds padded to 20000) through
+   ``scripts/torch_scale_run.py`` on the seg path with staged capacity up
+   to 131072, pair budget 196608, cap 512, cut in depth only: 52 epochs
+   (the duplications at 40 and 50) with the staged start factor lowered
+   to 1.0, so that the capacity steps to 131072 inside the cut.
+   Launches = epochs x views of each seg kernel and of the row sum, finite
+   losses, no pair overflow, and the final checkpoint (written after the
+   last growth) resumed through the CLI for one more epoch at its own
+   capacity. Then
+   phase 2 at the recipes' sizes on that grown state: the seg kernels on
+   DTU view 0 (7500 tiles, the 196608-pair budget) under phase 2's gates
+   with two launches of each bit-equal; the kNN at k = 6 and 15 on the
+   state's 131072 rows, bit for bit the plain version on seeded query
+   rows; the row sum of the view's 196608 backward rows, bit for bit the
+   CPU plain version; each timed beside its bound and, where one exists,
+   the PyTorch call (the ``dtu`` entries of the kernels line).
+
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
 ``cli/make_synthetic.py --seed 11`` makes SYN01, then fit_edges and
 evaluate, printing chamfer and F@5/10/20 (the quality metric of PERF.md
-section 2; ROADMAP Queue 3).
+section 2; ROADMAP Queue 3); then the whole 500-epoch DTU recipe on
+dtu_s0 through ``scripts/torch_scale_run.py``, fit_edges and evaluate,
+beside the JAX package's dtu_s0 audit and DTU-synthetic spread.
 
 With ``--profile_dir``, phases 3 and 4 also trace epoch 2 with
 torch.profiler (``cli.train --profile_dir``; the tracing slows those
@@ -272,6 +296,19 @@ SHARD_ROWS = 16384          # rows of the probe's shard per rank
 # phase 8: the lab's entry points; the logsum form's tolerance (a sum of
 # logs in another order than the plain version's cumsum, then exp, where
 # the other forms multiply the same factors)
+# phase 9: configs/DTU.json on the tracked dtu_s0 scan, cut in depth to
+# DTU_EPOCHS epochs (its first two duplications, at 40 and 50, and one
+# epoch after them), with the staged start at 32768 rows (start factor
+# 1.0 for its 22482 padded seeds), so that the capacity steps 32768 ->
+# 65536 -> 131072 inside the cut. Duplications moved to the first epochs
+# select a third of the Gaussians each and overflow the pair budget by
+# the fourth (327649 pairs of 196608 on the card); the recipe's own
+# epochs do not. The kNN at its k of the direction fetch (6) and of
+# Replica's wayward cull (15)
+DTU_RECIPE = os.path.join(REPO, "configs", "DTU.json")
+DTU_EPOCHS = 52
+DTU_START_FACTOR = 1.0
+DTU_KNN_KS = (6, 15)
 LAB_SCRIPTS = ("torch_kernel_lab", "torch_cumprod_lab",
                "torch_segpair_probe")
 LOGSUM_TOL = 5e-5
@@ -306,6 +343,12 @@ def phase_environment():
         log(f"triton {triton.__version__}")
     except ImportError:
         log("triton: not importable")
+    log("tensorboardX: " + ("importable" if importlib.util.find_spec(
+        "tensorboardX") else "not installed")
+        + "; the smoke's training runs write no TensorBoard logs")
+    # the trainer's view-0 render every 5th epoch would add seg forward
+    # launches and time to every path's counts and epochs
+    sys.modules["tensorboardX"] = None
     log(run([_build.nvcc_path(), "--version"]).splitlines()[-1])
     log(f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     if torch.backends.cuda.matmul.allow_tf32:
@@ -350,28 +393,34 @@ def fixture_cameras(device):
     return out, w, h, opac.shape[0]
 
 
+def seg_case(proj, packed, w: int, h: int, cap: int, budget: int,
+             max_tiles: int, gen, device) -> dict:
+    """One camera's seg compositor inputs: its projection binned at
+    ``cap`` / ``budget`` / ``max_tiles``, and seeded [T,256] cotangents."""
+    from edgegaussians_tpu_torch.ops import segpair, tiles
+    n = packed.shape[0]
+    origins = tiles.tile_origins(w, h, 16, device=device)
+    with torch.no_grad():
+        pbins = tiles.bin_pairs_frame_order(
+            proj, w, h, 16, min(cap, n), budget,
+            max_tiles_per_gaussian=max_tiles)
+        src, ox, oy = segpair.pair_inputs(packed[pbins.order], pbins,
+                                          origins)
+        feats = segpair.build_pair_features(src, ox, oy).contiguous()
+        T = pbins.counts_f.shape[0]
+        g = torch.rand((T, 256), generator=gen, device=device)
+    return dict(pbins=pbins, src=src, ox=ox, oy=oy, feats=feats,
+                s_f=pbins.s_f.to(torch.int32), g=g, n=n)
+
+
 def seg_cases(device):
     """Per camera: the seg compositor's inputs at the main path's shapes."""
-    from edgegaussians_tpu_torch.ops import segpair, tiles
-    cams, w, h, n = fixture_cameras(device)
-    origins = tiles.tile_origins(w, h, 16, device=device)
-    basis = tiles.pixel_basis(16, device=device)
+    from edgegaussians_tpu_torch.ops import tiles
+    cams, w, h, _ = fixture_cameras(device)
     gen = torch.Generator(device=device).manual_seed(0)
-    cases = []
-    with torch.no_grad():
-        for proj, packed in cams:
-            pbins = tiles.bin_pairs_frame_order(
-                proj, w, h, 16, min(768, n), 49152,
-                max_tiles_per_gaussian=16)
-            src, ox, oy = segpair.pair_inputs(packed[pbins.order], pbins,
-                                              origins)
-            feats = segpair.build_pair_features(src, ox, oy).contiguous()
-            T = pbins.counts_f.shape[0]
-            g = torch.rand((T, 256), generator=gen, device=device)
-            cases.append(dict(pbins=pbins, src=src, ox=ox, oy=oy,
-                              feats=feats, s_f=pbins.s_f.to(torch.int32),
-                              g=g, n=n))
-    return cases, basis
+    cases = [seg_case(proj, packed, w, h, 768, 49152, 16, gen, device)
+             for proj, packed in cams]
+    return cases, tiles.pixel_basis(16, device=device)
 
 
 def seg_work(cs, basis):
@@ -2693,6 +2742,313 @@ def onehot_device(device, dev_ms: float, lib_dev_ms: float,
                              f"below onehot @ c's {lib_dev_ms:.4f} ms")
 
 
+def scale_module():
+    """``scripts/torch_scale_run.py``, loaded from its path."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_scale_run", os.path.join(REPO, "scripts",
+                                        "torch_scale_run.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dtu_recipe() -> dict:
+    with open(DTU_RECIPE) as f:
+        return json.load(f)
+
+
+def phase_dtu_recipe(tmp: str, profile_dir=None):
+    """The DTU recipe at full width (``configs/DTU.json``: 30 views at
+    1600x1200, 131072 Gaussians at most, pair budget 196608, cap 512, the
+    seg path, staged capacity) on the tracked dtu_s0 scan, cut in depth
+    only: DTU_EPOCHS epochs, the staged start factor lowered to
+    DTU_START_FACTOR, so that the capacity steps up to the maximum inside
+    the cut. Every launch count is set to 0 just before the run and read
+    just after. Then the run's final checkpoint, written after the last
+    growth, resumes for one more epoch through the CLI. Returns
+    (launches, the run's numbers, the resumed state's checkpoint
+    path)."""
+    scale = scale_module()
+    d = dtu_recipe()
+    max_cap = d["model"]["max_num_gaussians"]
+    budget = d["model"]["tile_pair_budget"]
+    log(f"== phase 9: the DTU recipe at full width on dtu_s0 (30 views, "
+        f"1600x1200, up to {max_cap} Gaussians, pair budget {budget}), "
+        f"{DTU_EPOCHS} epochs, staged start factor {DTU_START_FACTOR}")
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
+    res = scale.scale_run(
+        DTU_RECIPE, DTU_EPOCHS, "cuda", os.path.join(tmp, "dtu"),
+        skip_eval=True,
+        profile_dir=os.path.join(profile_dir, "dtu") if profile_dir
+        else None,
+        model={"staged_capacity_start_factor": DTU_START_FACTOR})
+    torch.cuda.synchronize()
+    launches = {k: v for mod in kernel_modules()
+                for k, v in mod.launch_counts.items()}
+    views = 30
+    expected = no_launches(segpair_fwd=DTU_EPOCHS * views,
+                           segpair_bwd=DTU_EPOCHS * views,
+                           rank_sum=DTU_EPOCHS * views)
+    if launches != expected:
+        raise AssertionError(f"launches {launches} on the DTU path, "
+                             f"expected {expected}")
+    losses = res["losses"]
+    if len(losses) != DTU_EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"DTU epoch losses {losses}")
+    steps = [tuple(int(x) for x in re.findall(r"capacity (\d+) -> (\d+)",
+                                              line)[0])
+             + (int(line.split()[1][:-1]),) for line in res["capacity_steps"]]
+    if not steps or steps[-1][1] != max_cap:
+        raise AssertionError(f"DTU capacity steps {res['capacity_steps']} "
+                             f"do not reach {max_cap}")
+    if res["peak_pairs"] is None or res["peak_pairs"] > budget:
+        raise AssertionError(f"DTU peak pairs {res['peak_pairs']} over the "
+                             f"budget {budget}")
+    if profile_dir:
+        log("dtu path, epoch 2 traced: " + trace_summary(
+            os.path.join(profile_dir, "dtu", "trace.json"), views))
+    # resume the run's final checkpoint, written after the last growth,
+    # for one more epoch
+    ckpt = os.path.join(res["out_dir"], f"epoch{DTU_EPOCHS - 1}.npz")
+    with np.load(ckpt) as z:
+        cap = z["f:.gaussians.alive"].shape[0]
+        n_live = int(z["f:.gaussians.alive"].sum())
+    with open(res["config_path"]) as f:
+        cfg = json.load(f)
+    cfg["training"]["num_epochs"] = 1
+    cfg["output"]["output_dir"] = os.path.join(tmp, "dtu_resumed") + "/"
+    cfg_path = os.path.join(tmp, "dtu_resume.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    from edgegaussians_tpu_torch.cli import train as train_cli
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = train_cli.main(["--config_file", cfg_path, "--scene_name",
+                             res["scan"], "--backend", "cuda",
+                             "--force_rerun", "--ckpt_path", ckpt])
+    resumed = os.path.join(cfg["output"]["output_dir"], "release_PidiNet",
+                           res["scan"], "epoch0.npz")
+    if rc or not os.path.exists(resumed):
+        raise AssertionError(f"the DTU resume failed:\n{text.getvalue()}")
+    rows = epoch_lines(text.getvalue(), 1)
+    with np.load(resumed) as z:
+        if z["f:.gaussians.alive"].shape[0] != cap or not all(
+                np.isfinite(z[f"f:.gaussians.params.{g}"]).all()
+                for g in ("means", "scales", "quats", "opacities")):
+            raise AssertionError("the resumed DTU state's capacity or "
+                                 "parameters")
+    wall = res["train_wall_s"]
+    log(f"DTU path ok: losses {losses}; capacity steps "
+        f"{res['capacity_steps']}; peak pairs {res['peak_pairs']} of "
+        f"{budget}; {res['final_live']} live at the end; training wall "
+        f"{wall:.1f}s for {DTU_EPOCHS} epochs (set-up included); launches "
+        f"{launches}; the final checkpoint ({cap} rows, {n_live} live, "
+        f"written after the epoch-{steps[-1][2]} growth) resumed one epoch "
+        f"at capacity {cap}, loss {rows[0][0]}")
+    return launches, res, resumed
+
+
+def dtu_view_case(ckpt: str, device):
+    """View 0 of dtu_s0 on the grown state of ``ckpt``: its live rows
+    projected, binned at the recipe's cap and budget, as a seg case; and
+    the state's means and alive mask."""
+    from edgegaussians_tpu_torch.config import config_from_dict
+    from edgegaussians_tpu_torch.data import parsers
+    from edgegaussians_tpu_torch.ops import tiles
+    from edgegaussians_tpu_torch.ops.projection import project_gaussians
+    d = dtu_recipe()
+    scale = scale_module()
+    d["data"].update(base_dir=os.path.join(scale.DTU_BASE, "data") + "/",
+                     edge_detection_method=scale.DETECTOR)
+    cfg = config_from_dict(d)
+    scene = parsers.load_scene(cfg.data, scale.DTU_SCAN)
+    w, h = scene.width, scene.height
+    with np.load(ckpt) as z:
+        p = {k: torch.from_numpy(z[f"f:.gaussians.params.{k}"]).to(device)
+             for k in ("means", "scales", "quats", "opacities")}
+        alive = torch.from_numpy(z["f:.gaussians.alive"]).to(device)
+    live = alive.nonzero()[:, 0]
+    with torch.no_grad():
+        proj = project_gaussians(
+            p["means"][live], p["quats"][live], torch.exp(p["scales"][live]),
+            torch.sigmoid(p["opacities"][live, 0]),
+            torch.from_numpy(np.asarray(scene.viewmats[0],
+                                        np.float32)).to(device),
+            torch.from_numpy(np.asarray(scene.Ks[0], np.float32)).to(device),
+            w, h)
+    gen = torch.Generator(device=device).manual_seed(13)
+    cs = seg_case(proj, tiles.pack_gaussian_render_data(proj), w, h,
+                  cfg.model.tile_gaussian_capacity, cfg.model.tile_pair_budget,
+                  cfg.model.max_tiles_per_gaussian, gen, device)
+    return cs, tiles.pixel_basis(16, device=device), p["means"], alive, (w, h)
+
+
+def phase_recipe_kernels(device, ckpt: str, dtu_launches: dict) -> dict:
+    """Phase 2 at the DTU / Replica recipes' sizes, on the grown state of
+    the DTU run: the seg kernels on one DTU view (7500 tiles, the 196608
+    budget) under phase 2's gates, two launches of each bit-equal; the
+    kNN at k = 6 and 15 on the state's live means at its 131072 rows, bit
+    for bit the plain version on seeded query rows; the row sum of the
+    view's backward rows (196608), bit for bit the CPU plain version.
+    Returns, per kernel, its numbers at these sizes for the kernels
+    line."""
+    from edgegaussians_tpu_torch.ops import knn as knn_mod
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    from edgegaussians_tpu_torch.ops import segpair
+    cs, basis, means, alive, (w, h) = dtu_view_case(ckpt, device)
+    pb = cs["pbins"]
+    T = pb.counts_f.shape[0]
+    log(f"== phase 2 (recipe sizes): the DTU state of {alive.shape[0]} rows "
+        f"({int(alive.sum())} live), view 0 at {w}x{h}: {T} tiles, "
+        f"{int(pb.num_pairs)} pairs of the {pb.pair_valid.shape[0]} budget, "
+        f"{int(pb.s_f[-1])} kept, longest run {int(pb.counts_f.max())}")
+    out = {}
+    per_view = {k: v // (DTU_EPOCHS * 30) for k, v in dtu_launches.items()}
+    with torch.no_grad():
+        img_k = segpair.segpair_fwd(cs["feats"], cs["s_f"], basis)
+        img_r = segpair.segpair_fwd_ref(cs["feats"], cs["s_f"], basis)
+        gt = (cs["g"] * (1.0 - img_r)).contiguous()
+        dfe_k = segpair.segpair_bwd(cs["feats"], cs["s_f"], basis, gt)
+        dfe_r = segpair.segpair_bwd_ref(cs["feats"], cs["s_f"], basis, gt)
+        twice = (segpair.segpair_fwd(cs["feats"], cs["s_f"], basis),
+                 segpair.segpair_bwd(cs["feats"], cs["s_f"], basis, gt))
+        torch.cuda.synchronize()
+        valid = pb.pair_valid[:, None]
+        dfe_k = torch.where(valid, dfe_k, torch.zeros_like(dfe_k))
+        out_k = segpair.pair_grads_to_packed(dfe_k, cs["src"], cs["ox"],
+                                             cs["oy"], pb, cs["n"])
+        out_r = segpair.pair_grads_to_packed(dfe_r, cs["src"], cs["ox"],
+                                             cs["oy"], pb, cs["n"])
+        if not torch.equal(img_k, twice[0]) or not torch.equal(
+                torch.where(valid, twice[1], torch.zeros_like(dfe_k)),
+                dfe_k):
+            raise AssertionError("DTU view: two launches of a seg kernel "
+                                 "differ")
+        e_img = (img_k - img_r).abs().max().item()
+        check_image(e_img, "DTU view")
+        rel = [rel_err(a, b, f"DTU view: {name}")
+               for name, a, b in zip(("dfeats", "dpacked", "absgrad"),
+                                     (dfe_k, *out_k), (dfe_r, *out_r))]
+        fwd_b, bwd_b, evals = seg_work(cs, basis)
+        gt_t = (cs["g"] * 0.5).contiguous()
+        calls = {
+            "segpair_fwd": (
+                lambda: segpair.segpair_fwd(cs["feats"], cs["s_f"], basis),
+                lambda: segpair.segpair_fwd_ref(cs["feats"], cs["s_f"],
+                                                basis), fwd_b, FWD_OPS),
+            "segpair_bwd": (
+                lambda: segpair.segpair_bwd(cs["feats"], cs["s_f"], basis,
+                                            gt_t),
+                lambda: segpair.segpair_bwd_ref(cs["feats"], cs["s_f"],
+                                                basis, gt_t), bwd_b,
+                BWD_OPS)}
+        for name, (kern, plain, nbytes, ops) in calls.items():
+            out[name] = {
+                "ms": cuda_ms(kern, 10), "device_ms": queued_ms(kern, 10),
+                "plain_ms": cuda_ms(plain, 1),
+                "bound": bound_ms(nbytes, evals, ops), "library_ms": None,
+                "max_abs_err": e_img if name == "segpair_fwd"
+                else (dfe_k - dfe_r).abs().max().item(),
+                "launches_per_view_step": per_view[name]}
+        log(f"DTU view: img_err {e_img:.3g}, dfeats_rel {rel[0]:.3g}, "
+            f"dpacked_rel {rel[1]:.3g}, absgrad_rel {rel[2]:.3g}; two "
+            f"launches bit-equal; {evals} pair-pixel evaluations")
+
+        # the row sum of the view's backward rows
+        dsrc = segpair.build_pair_features_vjp(cs["src"], cs["ox"],
+                                               cs["oy"], dfe_k)
+        rows = torch.cat([dsrc, dsrc[:, 3:5].abs()], -1).contiguous()
+        idx, n, valid_r = pb.pair_ranks, cs["n"], pb.pair_valid
+        got = rs.rank_sum(rows, idx, n, valid_r)
+        again = rs.rank_sum(rows, idx, n, valid_r)
+        cpu = rs.rank_sum_ref(rows.cpu(), idx.cpu(), n, valid_r.cpu())
+        plain = rs.rank_sum_ref(rows, idx, n, valid_r)
+        if not (torch.equal(got.view(torch.int32), again.view(torch.int32))
+                and torch.equal(got.cpu().view(torch.int32),
+                                cpu.view(torch.int32))):
+            raise AssertionError("rank_sum at the DTU view: not two equal "
+                                 "launches of the CPU plain version's bits")
+        keys = torch.where(valid_r, idx, torch.full_like(idx, n))
+        acc = torch.zeros((n + 1, rows.shape[1]), device=device)
+        nv = int(valid_r.sum())
+        width = rows.shape[1]
+        nbytes = (nv * (width * 4 + idx.element_size())
+                  + valid_r.numel() + n * width * 4)
+        out["rank_sum"] = {
+            "ms": cuda_ms(lambda: rs.rank_sum(rows, idx, n, valid_r), 10),
+            "device_ms": queued_ms(
+                lambda: rs.rank_sum(rows, idx, n, valid_r), 10),
+            "plain_ms": cuda_ms(lambda: rs.rank_sum_ref(rows, idx, n,
+                                                        valid_r), 5),
+            "library_ms": cuda_ms(lambda: acc.index_add_(0, keys, rows), 10),
+            "bound": bound_ms(nbytes, nv, (width, 0)),
+            "max_abs_err": (got - plain).abs().max().item(),
+            "launches_per_view_step": per_view["rank_sum"]}
+        log(f"rank_sum at the DTU view: {rows.shape[0]} rows, {nv} valid, n "
+            f"{n}: bit-equal to the CPU plain version on two launches")
+
+        # the kNN on the grown state's means, every row queried
+        nrows = means.shape[0]
+        n_live = int(alive.sum())
+        qrows = torch.from_numpy(np.sort(np.random.default_rng(14).choice(
+            nrows, KNN_BIG_SAMPLE, replace=False))).to(device)
+        for k in DTU_KNN_KS:
+            d_k, i_k = knn_mod.knn(means, k, alive)
+            torch.cuda.synchronize()
+            ref = [knn_mod.knn_ref_rows(means, k, alive, qrows[c:c + 512])
+                   for c in range(0, KNN_BIG_SAMPLE, 512)]
+            check_knn(d_k[qrows], i_k[qrows], torch.cat([r[0] for r in ref]),
+                      torch.cat([r[1] for r in ref]), alive,
+                      f"DTU state k={k}", qrows)
+            inf = torch.tensor(float("inf"), device=device)
+
+            def library(k=k):
+                for r0 in range(0, nrows, KNN_BIG_CHUNK):
+                    r1 = min(r0 + KNN_BIG_CHUNK, nrows)
+                    dd = torch.where(alive[None, :],
+                                     torch.cdist(means[r0:r1], means), inf)
+                    q = torch.arange(r1 - r0, device=device)
+                    dd[q, r0 + q] = inf
+                    torch.topk(dd, k, dim=1, largest=False)
+
+            out[f"knn_k{k}"] = {
+                "ms": cuda_ms(lambda k=k: knn_mod.knn(means, k, alive), 3),
+                "device_ms": None,
+                "plain_ms": None, "library_ms": cuda_ms(library, 1),
+                "bound": bound_ms(nrows * 12 + nrows + nrows * k * 12,
+                                  nrows * n_live, KNN_OPS),
+                "max_abs_err": 0.0, "launches_per_view_step": 0}
+            log(f"knn on the DTU state, {nrows} rows ({n_live} live), k={k}: "
+                f"{KNN_BIG_SAMPLE} seeded query rows bit-equal to plain")
+    for name, t in out.items():
+        log(f"{name} at the recipe's size: kernel {t['ms']:.4f} ms"
+            + (f" (device {t['device_ms']:.4f})" if t["device_ms"] else "")
+            + (f", plain {t['plain_ms']:.4f} ms" if t["plain_ms"] else "")
+            + (f", library {t['library_ms']:.4f} ms" if t["library_ms"]
+               else "")
+            + f", bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+            f"{t['launches_per_view_step']} a DTU view step")
+    return out
+
+
+def phase_full_dtu(tmp: str):
+    """With --full: the 500-epoch DTU recipe on dtu_s0 through
+    scripts/torch_scale_run.py, then fit_edges and evaluate, beside the
+    JAX package's dtu_s0 audit and DTU-synthetic spread."""
+    log("== full (DTU): the whole DTU recipe on dtu_s0 through "
+        "scripts/torch_scale_run.py")
+    res = scale_module().scale_run(DTU_RECIPE, dtu_recipe()["training"][
+        "num_epochs"], "cuda", os.path.join(tmp, "dtu_full"))
+    log(f"full (DTU): train wall {res['train_wall_s']:.1f}s, peak pairs "
+        f"{res['peak_pairs']}/{res['pair_budget']}, capacity steps "
+        f"{res['capacity_steps']}, final live {res['final_live']}; chamfer "
+        f"{res['chamfer']} F@5/10/20 {res['F@5']} / {res['F@10']} / "
+        f"{res['F@20']} (the JAX package on dtu_s0: chamfer 0.005436, F@10 "
+        "0.981, docs/RESULTS.md:77-84; its DTU-synthetic spread 0.0055 +- "
+        "0.0006 / 0.979 +- 0.010, docs/RESULTS.md:326-338)")
+
+
 def phase_full(tmp: str):
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     scan = "SYN01"
@@ -2800,8 +3156,12 @@ def main() -> int:
         others = phase_other_paths(tmp, scan, args.profile_dir)
         _, batch_pxs = phase_view_batch(tmp, scan)
         multi, (probe_launches, probe_err) = phase_multi_rank(tmp, scan)
+        dtu_launches, dtu, dtu_ckpt = phase_dtu_recipe(tmp,
+                                                       args.profile_dir)
+        recipe = phase_recipe_kernels(device, dtu_ckpt, dtu_launches)
         if args.full:
             phase_full(tmp)
+            phase_full_dtu(tmp)
     log(f"steady epochs (epoch >= 1): seg path {seg_pxs} Mpx/s; fallback "
         f"run, dense two-level path {dense_pxs} Mpx/s; orientation path "
         f"{orient_pxs} Mpx/s; "
@@ -2810,6 +3170,9 @@ def main() -> int:
         + f"; view batches of {VIEW_BATCH} {batch_pxs} Mpx/s; "
         + "; ".join(f"{name} ranks {pxs} Mpx/s"
                     for name, (pxs, _, _) in multi.items()))
+    log(f"DTU recipe (phase 9): {dtu['train_wall_s']:.1f}s for "
+        f"{DTU_EPOCHS} epochs, peak pairs {dtu['peak_pairs']}, capacity "
+        f"steps {dtu['capacity_steps']}")
     log(f"band renders (phase 7a) launched {band_launches['segpair_fwd']} "
         f"of each seg kernel; the shard-sum probe under all-reduce err "
         f"{probe_err:.3g}")
@@ -2861,6 +3224,15 @@ def main() -> int:
             "bound_by": bounds[name][1],
             "library_ms": ms[name][2] if len(ms[name]) > 2 else None,
             "device_ms": ms[name][3] if len(ms[name]) > 3 else None})
+        at = [(k, t) for k, t in recipe.items()
+              if k == name or k.startswith(name + "_k")]
+        if at:
+            # the same kernel at the DTU recipe's sizes (phase 9's state)
+            kernels[-1]["dtu"] = [dict(
+                {kk: v for kk, v in t.items() if kk != "bound"},
+                at=k, bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                launches_dtu_run=dtu_launches.get(name, 0))
+                for k, t in at]
     print(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

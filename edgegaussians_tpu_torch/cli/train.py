@@ -15,7 +15,9 @@ error where torch sees no GPU; ``--backend torch`` trains on the CPU.
 Same flags and run layout as the JAX CLI (train_gaussians.py:225-346):
 outputs go to ``<output_dir>/<exp_name>_<detector>/<scene>/`` with
 ``gaussians_all.ply``, the final checkpoint ``epoch<N-1>.npz`` and
-``time.txt``.
+``time.txt``, TensorBoard logs to ``<log_dir>/<exp_name>_<detector>/
+<scene>/`` where tensorboardX is installed. ``--ckpt_path`` resumes at
+the checkpoint's capacity (a staged run's), up to the config's maximum.
 
 The mesh flags (JAX cli/train.py:40-66,120-163) train on the ranks that
 torchrun starts, one process per rank: ``--mesh_tiles`` splits each render
@@ -174,6 +176,7 @@ def run(argv=None):
                   "epochs. Exiting")
         return None
     os.makedirs(output_dir, exist_ok=True)
+    log_dir = os.path.join(cfg.output.log_dir, exp_name, scene_name)
 
     # optional resume: restores optimizer state and step too; checkpoints
     # of either package load (the JAX key layout)
@@ -187,7 +190,7 @@ def run(argv=None):
 
     t0 = time.time()
     state = trainer.train(scene, seed_pts, cfg, backend=backend,
-                          initial_state=initial_state,
+                          log_dir=log_dir, initial_state=initial_state,
                           checkpoint_dir=(output_dir
                                           if cfg.training.checkpoint_interval
                                           else None),

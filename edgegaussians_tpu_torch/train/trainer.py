@@ -22,8 +22,15 @@ copy; rank 0's copy is broadcast after every orientation fire and density
 event, every epoch ends with a bit-for-bit check that the ranks agree,
 and only rank 0 logs and writes checkpoints.
 
-Not ported yet, and refused up front by :func:`train`: staged capacity
-(ROADMAP Queue 1 #8).
+Staged capacity (trainer.py:472-514,566-572,672-686): a run with
+``staged_capacity`` starts at the smallest power of two from 1024 up that
+holds ``staged_capacity_start_factor`` x its seeds, and doubles, up to
+``max_num_gaussians``, before any density event once the live count (or
+twice it, on an epoch with a scheduled duplication) passes
+``staged_capacity_grow_threshold`` of the capacity. Growing pads every
+capacity-sized tensor in place; every step reads the capacity from the
+model on each call, so nothing is rebuilt. ``train(log_dir=...)`` writes
+the JAX trainer's TensorBoard scalars and images (trainer.py:741-759).
 
 Random draws come from one CPU ``torch.Generator`` seeded with the
 training seed: the per-epoch view permutation (injectable through
@@ -44,7 +51,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from edgegaussians_tpu_torch.config import FrameworkConfig
+from edgegaussians_tpu_torch.config import FrameworkConfig, resolve_capacity
 from edgegaussians_tpu_torch import (
     backend_device, resolve_backend, resolve_compositor)
 from edgegaussians_tpu_torch.models import density, losses
@@ -95,6 +102,21 @@ def _strategy_index(name: str) -> int:
         raise ValueError(f"Unknown projection loss strategy: {name}")
 
 
+def render_settings(cfg: FrameworkConfig) -> dict:
+    """The model config's tile settings as ``rasterize`` keywords."""
+    mcfg = cfg.model
+    return dict(
+        tile_size=mcfg.tile_size, capacity=mcfg.tile_gaussian_capacity,
+        dense_capacity=mcfg.tile_dense_capacity,
+        overflow_tiles=mcfg.tile_overflow_tiles,
+        pair_budget=mcfg.tile_pair_budget,
+        occupancy_sort=mcfg.tile_occupancy_sort,
+        pair_kernel=mcfg.tile_pair_kernel,
+        backend=resolve_compositor(mcfg.rasterizer_backend),
+        max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
+        antialiased=(mcfg.rasterize_mode == "antialiased"))
+
+
 def make_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int):
     """Projection loss and its gradients for one view.
 
@@ -106,16 +128,7 @@ def make_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int):
     """
     mcfg = cfg.model
     pl_cfg = cfg.training.loss.projection_losses
-    render_kwargs = dict(
-        tile_size=mcfg.tile_size, capacity=mcfg.tile_gaussian_capacity,
-        dense_capacity=mcfg.tile_dense_capacity,
-        overflow_tiles=mcfg.tile_overflow_tiles,
-        pair_budget=mcfg.tile_pair_budget,
-        occupancy_sort=mcfg.tile_occupancy_sort,
-        pair_kernel=mcfg.tile_pair_kernel,
-        backend=resolve_compositor(mcfg.rasterizer_backend),
-        max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
-        antialiased=(mcfg.rasterize_mode == "antialiased"))
+    render_kwargs = render_settings(cfg)
 
     def projection_loss(pred, gt, edge_mask, strategy_idx, bg_ratio,
                         bg_scores):
@@ -301,12 +314,69 @@ def density_flags(epoch: int, cfg: FrameworkConfig) -> np.ndarray:
     ], dtype=bool)
 
 
-def check_schedule_is_ported(cfg: FrameworkConfig) -> None:
-    """Raise NotImplementedError when ``cfg`` asks for something the port
-    does not have yet."""
-    if cfg.model.staged_capacity:
-        raise NotImplementedError(
-            "staged_capacity is not ported yet (ROADMAP Queue 1 #8)")
+@torch.no_grad()
+def grow_capacity(state: TrainState, new_cap: int) -> None:
+    """Pad every capacity-sized tensor of ``state`` to ``new_cap`` rows, in
+    place (trainer.py:472-505): parameters with zeros and quats with unit-w
+    rows [1, 0, 0, 0] (so the padding projects finitely), ``alive`` with
+    False, absgrads and both Adam moments of every group with zeros. The
+    groups' step counts stay. A capacity at or below the current one
+    changes nothing."""
+    model = state.model
+    pad = new_cap - model.capacity
+    if pad <= 0:
+        return
+
+    def padded(x, fill=0.0):
+        return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+    for g in GROUPS:
+        grown = padded(getattr(model, g).detach())
+        if g == "quats":
+            grown[-pad:, 0] = 1.0
+        setattr(model, g, torch.nn.Parameter(grown))
+        mu, nu = state.opt.moments[g]
+        state.opt.moments[g] = (padded(mu), padded(nu))
+    model.alive = padded(model.alive, False)
+    model.absgrads = padded(model.absgrads)
+
+
+def staged_start_capacity(n_seed: int, cfg: FrameworkConfig,
+                          max_cap: int) -> int:
+    """The first stage (trainer.py:508-514): the smallest power of two from
+    1024 up that reaches ``max(start_factor * n_seed, 1024)``, at most
+    ``max_cap``."""
+    target = max(int(cfg.model.staged_capacity_start_factor * n_seed), 1024)
+    cap = 1024
+    while cap < target:
+        cap *= 2
+    return min(cap, max_cap)
+
+
+def staged_growth(state: TrainState, epoch: int, num_alive: int,
+                  cfg: FrameworkConfig, max_cap: int, log_fn) -> bool:
+    """The growth check before density control (trainer.py:672-686): while
+    below ``max_cap``, double the capacity (at most to ``max_cap``) while
+    the live count, or twice it on an epoch with a scheduled duplication
+    (room for the clones), exceeds the grow threshold of the capacity.
+    Returns whether it grew."""
+    mcfg = cfg.model
+    cap = state.model.capacity
+    if not mcfg.staged_capacity or cap >= max_cap:
+        return False
+    dup = (mcfg.if_duplicate_high_pos_grad
+           and epoch in mcfg.dup_high_pos_grads_at_epoch)
+    want = 2 * num_alive if dup else num_alive
+    new_cap = cap
+    while (want > mcfg.staged_capacity_grow_threshold * new_cap
+           and new_cap < max_cap):
+        new_cap = min(new_cap * 2, max_cap)
+    if new_cap == cap:
+        return False
+    grow_capacity(state, new_cap)
+    log_fn(f"epoch {epoch}: capacity {cap} -> {new_cap} "
+           f"(alive {num_alive})")
+    return True
 
 
 def init_train_state(seed_points: np.ndarray, cfg: FrameworkConfig,
@@ -450,6 +520,7 @@ def run_view_batch_epoch(state: TrainState, epoch: int, dp_step, dp_rng,
 def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
           backend: str = "auto", log_fn=print,
           checkpoint_dir: Optional[str] = None,
+          log_dir: Optional[str] = None,
           initial_state: Optional[TrainState] = None,
           profile_dir: Optional[str] = None, profile_epochs: int = 1,
           view_orders: Optional[List[Sequence[int]]] = None,
@@ -466,7 +537,11 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
     duplication noise and ``bg_scores[r]`` render r's bg_edge_ratio
     scores (in view-batch mode: batch step r's, one row per view of the
     batch). ``profile_dir`` writes a torch.profiler Chrome
-    trace of epochs [2, 2 + profile_epochs).
+    trace of epochs [2, 2 + profile_epochs). ``log_dir`` writes
+    TensorBoard logs where tensorboardX is installed (else one line says
+    they are off): each epoch's "Projection loss" and "num_gaussians",
+    and every 5th epoch's "Output Image", view 0 rendered on the run's
+    own path and device, clipped to [0, 1].
 
     ``mesh`` (``parallel/mesh.py``) splits every render over its
     ``mesh_strategy`` axis: 'tiles' bands of tile rows, or 'gauss' shards
@@ -475,7 +550,6 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
     means one rank. Every rank calls this with the same arguments; only
     rank 0 logs and writes checkpoints.
     """
-    check_schedule_is_ported(cfg)
     lead = distributed.rank() == 0
     if not lead:
         def log_fn(*_):
@@ -488,8 +562,15 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
         device)
     Ks = torch.from_numpy(np.asarray(scene.Ks, np.float32)).to(device)
 
-    state = initial_state or init_train_state(seed_points, cfg,
-                                              device=device)
+    max_cap = resolve_capacity(cfg.model, len(seed_points))
+    if initial_state is not None:
+        state = initial_state
+    elif cfg.model.staged_capacity:
+        state = init_train_state(
+            seed_points, cfg, device=device,
+            capacity=staged_start_capacity(len(seed_points), cfg, max_cap))
+    else:
+        state = init_train_state(seed_points, cfg, device=device)
     if distributed.is_distributed():
         state.sync = distributed.replicate
         distributed.replicate(state)
@@ -505,7 +586,8 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
                 f"mesh axis size {dp_mesh.size('views')}")
         dp_rng = np.random.default_rng(cfg.training.seed + 977)
     pair_mode = bool(cfg.model.tile_pair_budget)
-    reports_pairs = _reports_pairs(cfg.model, state.model.capacity)
+    step_cfg = cfg              # the dense frame's after a fallback
+    writer = _summary_writer(log_dir, log_fn) if lead and log_dir else None
     px_per_epoch = scene.num_views * scene.width * scene.height
     num_tiles = tile_grid(scene.width, scene.height, cfg.model.tile_size)[2]
     ovf_budget = cfg.model.tile_overflow_tiles or max(num_tiles // 4, 8)
@@ -540,10 +622,12 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
             prof = None
             log_fn(f"profiler trace and key_averages.txt written to "
                    f"{profile_dir}")
+        grew = staged_growth(state, epoch, stats.num_alive, cfg, max_cap,
+                             log_fn)
         fired = run_density_control(
             state, epoch, cfg, viewmats, Ks, edge_masks,
             noise=density_noise.get(epoch) if density_noise else None)
-        if fired and state.sync is not None:
+        if (fired or grew) and state.sync is not None:
             state.sync(state)
         distributed.check_lockstep(state, f"after epoch {epoch}")
         if epoch % max(cfg.training.log_interval, 1) == 0:
@@ -558,22 +642,52 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
                    + (f"pairs={stats.max_pairs}"
                       + (f"/{cfg.model.tile_pair_budget} "
                          if cfg.model.tile_pair_budget else " ")
-                      if reports_pairs else "")
+                      if _reports_pairs(step_cfg.model, state.model.capacity)
+                      else "")
                    + f"px/s={px_per_epoch / dt / 1e6:.1f}M "
                    f"t={now - t0:.1f}s")
         if pair_mode and _pair_overflow(epoch, stats, cfg, log_fn):
             # rebuild the step on the dense frame path for the rest of
             # the run (trainer.py:716-738)
-            dense_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            step_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, tile_pair_budget=0))
-            step_fn = build_step(dense_cfg)
+            step_fn = build_step(step_cfg)
             pair_mode = False
-            reports_pairs = _reports_pairs(dense_cfg.model,
-                                           state.model.capacity)
+        if writer is not None:
+            _log_epoch(writer, epoch, stats, state, step_cfg, scene,
+                       viewmats[0], Ks[0])
         if (lead and checkpoint_dir and cfg.training.checkpoint_interval
                 and (epoch + 1) % cfg.training.checkpoint_interval == 0):
             save_checkpoint(state, checkpoint_dir, epoch)
+    if writer is not None:
+        writer.close()
     return state
+
+
+def _summary_writer(log_dir: str, log_fn):
+    """A tensorboardX writer on ``log_dir``; where tensorboardX is not
+    installed, None, and one line saying that the logs are off."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        log_fn(f"TensorBoard logs are off: tensorboardX is not installed "
+               f"({log_dir} is not written)")
+        return None
+    return SummaryWriter(log_dir)
+
+
+@torch.no_grad()
+def _log_epoch(writer, epoch: int, stats: EpochStats, state: TrainState,
+               cfg: FrameworkConfig, scene, viewmat, K) -> None:
+    """The JAX trainer's TensorBoard record of an epoch
+    (trainer.py:741-759), view 0 rendered on the run's own path."""
+    writer.add_scalar("Projection loss", stats.avg_loss, epoch)
+    writer.add_scalar("num_gaussians", stats.num_alive, epoch)
+    if epoch % 5 == 0:
+        out = render_view(state.model, viewmat, K, scene.width,
+                          scene.height, **render_settings(cfg))
+        writer.add_image("Output Image", torch.clamp(
+            out.image, 0.0, 1.0)[None].cpu().numpy(), epoch)
 
 
 def _start_profiler(device):
@@ -602,14 +716,16 @@ def save_checkpoint(state: TrainState, out_dir: str, epoch: int) -> str:
 
 def load_checkpoint(path: str, template: TrainState) -> TrainState:
     """Restore a checkpoint written by either package onto the template's
-    device; raises KeyError on a missing field and ValueError on a
-    capacity that differs from the template's."""
+    device, at the checkpoint's own capacity (a staged run's is below the
+    maximum; the JAX ``load_checkpoint`` takes each array's shape from the
+    file). Raises KeyError on a missing field and ValueError on a capacity
+    above the template's, the run's maximum."""
     from edgegaussians_tpu_torch import convert
     with np.load(path) as data:
         state = convert.state_from_arrays(
             dict(data), device=template.model.means.device)
-    if state.model.capacity != template.model.capacity:
+    if state.model.capacity > template.model.capacity:
         raise ValueError(
-            f"checkpoint {path} has capacity {state.model.capacity}, "
-            f"expected {template.model.capacity}")
+            f"checkpoint {path} has capacity {state.model.capacity}, above "
+            f"the run's maximum {template.model.capacity}")
     return state

@@ -20,7 +20,8 @@ Tasks (``--tasks``, comma-separated):
   on this rank's shard of one array, and the all-gather's backward on
   per-rank cotangents;
 - ``train``: ``trainer.train`` for the inputs' epochs on a ('tiles',
-  world) mesh, then in view batches on a ('views', world) mesh;
+  world) mesh, then in view batches on a ('views', world) mesh, then
+  those view batches with staged capacity (a growth at the duplication);
 - ``cli``: the probe on the device of ``--device``, a probe of which
   collectives the backend takes on that device, then the port's training
   CLI with the arguments after ``--`` in the same group (the
@@ -186,9 +187,18 @@ def task_probe(out, device="cpu"):
     out["gather_grad"] = grad.cpu().numpy()
 
 
+def staged_config(cfg):
+    """``cfg`` with staged capacity up to 4096 rows, its threshold cut so
+    that a duplication epoch grows the capacity."""
+    import dataclasses
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, staged_capacity=True, max_num_gaussians=4096,
+        staged_capacity_grow_threshold=0.15))
+
+
 def task_train(cfg, data, out):
-    """Epoch losses and final states of a tile-band run and a view-batch
-    run on this rank."""
+    """Epoch losses and final states of a tile-band run, a view-batch run
+    and a staged-capacity view-batch run on this rank."""
     import dataclasses
 
     from edgegaussians_tpu_torch.data.parsers import SceneViews
@@ -199,11 +209,12 @@ def task_train(cfg, data, out):
                        height=int(data["images"].shape[1]),
                        width=int(data["images"].shape[2]), cameras=None)
     seeds = data["seeds"]
+    batched = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, step_mode="view_batch",
+        view_batch_size=int(data["view_batch_size"])))
     runs = (("tiles", cfg, mesh_mod.axis_mesh("tiles", world)),
-            ("views", dataclasses.replace(cfg, training=dataclasses.replace(
-                cfg.training, step_mode="view_batch",
-                view_batch_size=int(data["view_batch_size"]))),
-             mesh_mod.make_mesh(world, 1)))
+            ("views", batched, mesh_mod.make_mesh(world, 1)),
+            ("staged", staged_config(batched), mesh_mod.make_mesh(world, 1)))
     for name, run_cfg, mesh in runs:
         lines = []
         state = trainer.train(scene, seeds, run_cfg, backend="torch",

@@ -38,9 +38,11 @@ pad past the image):
   ranks' cotangents, not 4 times its own.
 
 One 2-rank spawn: 3 epochs of ``trainer.train`` on a ('tiles', 2) mesh
-(a ratio fire and a duplication) and 3 epochs of view batches on a
-('views', 2) mesh, against the port's single-process runs of the same
-config and seed: the ranks' states equal bit for bit; epoch losses (the
+(a ratio fire and a duplication), 3 epochs of view batches on a
+('views', 2) mesh and the same with staged capacity (a growth before the
+duplication; bit for bit the one-process run's state), against the
+port's single-process runs of the same config and seed: the ranks'
+states equal bit for bit; epoch losses (the
 log line's 5 decimals) within one printed digit; alive equal;
 parameters, Adam moments and absgrads atol 1e-5 + rtol 1e-3 (moments
 and absgrads scale with the gradients: a gradient counted twice would
@@ -399,14 +401,19 @@ def two_ranks(tmp_path_factory):
     _write_inputs(inputs, d, jts, images, vms, Ks, seeds=seeds,
                   view_batch_size=np.int32(2))
     ranks = spawn(2, "train", inputs, tmp / "out")
+    sys.path.insert(0, os.path.join(_REPO, "scripts"))
+    import torch_multiprocess_worker as worker
     cfg = config_from_dict(d)
     scene = SceneViews(images=images, Ks=Ks, viewmats=vms, height=H,
                        width=W, cameras=None)
     single = {}
-    for name, step_mode in (("tiles", "per_view"), ("views", "view_batch")):
+    for name, step_mode in (("tiles", "per_view"), ("views", "view_batch"),
+                            ("staged", "view_batch")):
         c = config_from_dict(d)
         c.training.step_mode = step_mode
         c.training.view_batch_size = 2
+        if name == "staged":
+            c = worker.staged_config(c)
         lines = []
         state = trainer.train(scene, seeds, c, backend="torch",
                               log_fn=lines.append)
@@ -443,6 +450,29 @@ def test_two_rank_training_matches_single_process(two_ranks, run):
             continue
         _close(out[f"train_{run}:{k}"], v, f"{run} {k}", STATE_ATOL,
                STATE_RTOL)
+
+
+def test_two_rank_staged_training_is_bit_equal_to_one_process(two_ranks):
+    """Staged capacity on a ('views', 2) mesh, batches of 2 views (one a
+    rank, so the all-reduce adds the two views' terms as one process
+    does): the capacity grows from 1024 to 2048 before epoch 1's
+    duplication on both ranks in lockstep, and the final state equals
+    the one-process run's bit for bit."""
+    ranks, single, _ = two_ranks
+    ref, lines = single["staged"]
+    assert [x for x in lines if "capacity" in x] == \
+        ["epoch 1: capacity 1024 -> 2048 (alive 96)"]
+    got_log = str(ranks[0]["train_staged_log"]).splitlines()
+    assert [x for x in got_log if "capacity" in x] == \
+        [x for x in lines if "capacity" in x]
+    assert ref["f:.gaussians.alive"].shape == (2048,)
+    assert ref["f:.gaussians.alive"].sum() > 96
+    for k, v in ref.items():
+        if k == convert.GENERATOR_KEY:
+            continue
+        for r in (0, 1):
+            np.testing.assert_array_equal(ranks[r][f"train_staged:{k}"], v,
+                                          err_msg=f"rank {r} {k}")
 
 
 def test_initialize_and_mesh_without_a_launcher(monkeypatch):

@@ -9,9 +9,10 @@
   first steps move each parameter by about lr*sign(g) and would amplify
   sign noise in near-zero gradient entries; its arithmetic is the same
   term for term, so rtol 1e-6.
-- The trainer: injected view order, the up-front refusal of unported
-  schedule events, schedules with the orientation losses and an applied
-  wayward cull, the pair-overflow watermark's actions (the fallback
+- The trainer: injected view order, every shipped recipe accepted (staged
+  capacity too; only the XLA oracle compositor is refused), schedules
+  with the orientation losses and an applied wayward cull, the
+  pair-overflow watermark's actions (the fallback
   switches to the dense two-level path), and a density event after a
   fallback held to the JAX package's density function on the same state
   (alive exact, parameters and moments within 1e-6).
@@ -321,20 +322,34 @@ def test_train_cli_runs_one_rank_meshes(cfg_path, flags, steps):
     (dict(training={"step_mode": "view_batch"}), "view_batch"),
 ])
 def test_train_refuses_unported_schedule(cfg_path, change, match):
-    """Staged capacity is refused up front; view batches run, and are
-    refused only on a mesh without a 'views' axis."""
+    """Staged capacity runs: 2 epochs of 3 views start at the staged
+    capacity (1024 rows for 200 seeds, under the 2048 maximum) and grow
+    only past the threshold. View batches run, and are refused only on a
+    mesh without a 'views' axis."""
     _, d = cfg_path(**change.get("model", {}))
     d["training"].update(change.get("training", {}))
     cfg = config_from_dict(d)
+    scene, seeds = _scene_and_seeds(cfg)
     if "training" in change:
         from edgegaussians_tpu_torch.parallel import mesh as mesh_mod
-        scene, seeds = _scene_and_seeds(cfg)
         with pytest.raises(ValueError, match=match):
             trainer.train(scene, seeds, cfg, backend="torch",
                           mesh=mesh_mod.axis_mesh("tiles", 1))
         return
-    with pytest.raises(NotImplementedError, match=match):
-        trainer.train(None, None, cfg, backend="torch")
+    cfg.model.max_num_gaussians = 2048
+    logs = []
+    state = trainer.train(scene, seeds, cfg, backend="torch",
+                          log_fn=logs.append)
+    assert state.model.capacity == 1024 and state.step == 2 * VIEWS
+    assert not [x for x in logs if "capacity" in x]
+    assert int(state.model.alive.sum()) == seeds.shape[0]
+    cfg.model.staged_capacity_grow_threshold = 0.15    # 200 > 0.15 * 1024
+    logs = []
+    state = trainer.train(scene, seeds, cfg, backend="torch",
+                          log_fn=logs.append)
+    assert state.model.capacity == 2048
+    assert logs[0] == "epoch 0: capacity 1024 -> 2048 (alive 200)"
+    assert state.opt.moments["means"][0].shape == (2048, 3)
 
 
 WAYWARD = {"if_cull_wayward": True, "cull_wayward_apply": True,
@@ -375,26 +390,26 @@ def test_train_runs_orientation_and_wayward_schedules(cfg_path, change):
 
 
 def test_shipped_recipe_is_refused_past_its_first_density_epoch():
-    """Every shipped ABC recipe is accepted at its full num_epochs (the
-    ratio loss after epoch 100, the direction loss after 250, their kNN
-    and the wayward cull are ported), view batches too; staged capacity is
-    still refused."""
-    import dataclasses
-
+    """Every shipped recipe is accepted as it stands: the ABC recipes at
+    their full num_epochs (the ratio loss after epoch 100, the direction
+    loss after 250, their kNN and the wayward cull are ported) and the
+    DTU and Replica recipes with their staged capacity. The one schedule
+    the trainer refuses, in the ``resolve_backend`` call it starts with,
+    is the XLA oracle compositor."""
+    from edgegaussians_tpu_torch import resolve_backend
     from edgegaussians_tpu_torch.config import load_config
-    for name in ("ABC_DexiNed", "ABC_DexiNed_fast", "ABC_PidiNet"):
+    for name in ("ABC_DexiNed", "ABC_DexiNed_fast", "ABC_PidiNet", "DTU",
+                 "Replica"):
         cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
                                        "configs", f"{name}.json"))
         assert cfg.training.num_epochs - 1 > \
             cfg.training.loss.orientation_losses.start_dir_loss_at_epoch
-        trainer.check_schedule_is_ported(cfg)
-        staged = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, staged_capacity=True))
-        with pytest.raises(NotImplementedError, match="staged"):
-            trainer.check_schedule_is_ported(staged)
-        batched = dataclasses.replace(cfg, training=dataclasses.replace(
-            cfg.training, step_mode="view_batch"))
-        trainer.check_schedule_is_ported(batched)
+        assert cfg.model.staged_capacity == (name in ("DTU", "Replica"))
+        assert resolve_backend("torch", cfg.model.rasterizer_backend) == \
+            "torch"
+        for oracle in ("jax", "reference"):
+            with pytest.raises(ValueError, match="XLA oracle"):
+                resolve_backend("torch", oracle)
 
 
 def _count_renders(monkeypatch):
