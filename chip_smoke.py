@@ -122,7 +122,9 @@ Phases, in order; any failure exits non-zero:
    dfeats within 1e-4 of max-abs; ``twolevel`` against ``v3`` within
    1e-5; every probe PASS) and every lab kernel launched. Then each
    chunked-scan kernel (four forward scan forms and the backward) against
-   its plain version on level 1 and on level 2 fed level 1's t_out, and
+   its plain version on level 1 and on level 2 fed level 1's t_out, two
+   launches of each bit-equal, timed by events and by the device time of
+   calls queued behind a sleeping kernel (``device_ms``), and
    each probe kernel against its plain version and the script's oracle,
    with times beside the bound and, where one PyTorch call computes the
    same function, that call's (and the device times of each probe and
@@ -2390,7 +2392,12 @@ def phase_lab_kernels(device, traced: bool = False):
                      chunked.chunked_fwd_ref(f1, basis, scan=scan)),
                     (chunked.chunked_fwd(f2, basis, tin2, scan=scan),
                      chunked.chunked_fwd_ref(f2, basis, tin2, scan=scan))]
+            again = [chunked.chunked_fwd(f1, basis, scan=scan),
+                     chunked.chunked_fwd(f2, basis, tin2, scan=scan)]
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for (k, _), a in zip(outs, again)
+                       for x, y in zip(k, a)):
+                raise AssertionError(f"lab_fwd_{scan}: two launches differ")
             e_img = max((k[0] - r[0]).abs().max().item() for k, r in outs)
             check_image(e_img, f"lab_fwd_{scan}", tol)
             e_t = max(check_t_out(k[1], r[1], f"lab_fwd_{scan} level {i + 1}",
@@ -2401,7 +2408,11 @@ def phase_lab_kernels(device, traced: bool = False):
               chunked.chunked_bwd_ref(f1, basis, g1, None, None, total)),
              (chunked.chunked_bwd(f2, basis, g2, tin2, prior2, total2),
               chunked.chunked_bwd_ref(f2, basis, g2, tin2, prior2, total2))]
+        again = [chunked.chunked_bwd(f1, basis, g1, None, None, total),
+                 chunked.chunked_bwd(f2, basis, g2, tin2, prior2, total2)]
         torch.cuda.synchronize()
+        if not all(torch.equal(k, a) for (k, _), a in zip(d, again)):
+            raise AssertionError("lab_bwd_v3: two launches differ")
         rel = max(rel_err(k, r, f"lab_bwd_v3 level {i + 1}")
                   for i, (k, r) in enumerate(d))
         err["lab_bwd_v3"] = max((k - r).abs().max().item() for k, r in d)
@@ -2417,22 +2428,28 @@ def phase_lab_kernels(device, traced: bool = False):
         def fwd(f, scan):
             return lambda: (f(f1, basis, scan=scan),
                             f(f2, basis, tin2, scan=scan))
+        # events over back-to-back calls, the plain version's, none for a
+        # library, and the device time of calls queued behind a sleeping
+        # kernel: a call of both levels may take less device time than its
+        # two wrappers' host work
         for scan in chunked.SCANS:
             name = f"lab_fwd_{scan}"
             ms[name] = (cuda_ms(fwd(chunked.chunked_fwd, scan), 20),
-                        cuda_ms(fwd(chunked.chunked_fwd_ref, scan), 2), None)
+                        cuda_ms(fwd(chunked.chunked_fwd_ref, scan), 2), None,
+                        queued_ms(fwd(chunked.chunked_fwd, scan), 20))
             bounds[name] = bound_ms(fwd_b, evals, FWD_OPS)
 
         def bwd(f):
             return lambda: (f(f1, basis, g1, None, None, total),
                             f(f2, basis, g2, tin2, prior2, total2))
         ms["lab_bwd_v3"] = (cuda_ms(bwd(chunked.chunked_bwd), 20),
-                            cuda_ms(bwd(chunked.chunked_bwd_ref), 2), None)
+                            cuda_ms(bwd(chunked.chunked_bwd_ref), 2), None,
+                            queued_ms(bwd(chunked.chunked_bwd), 20))
         bounds["lab_bwd_v3"] = bound_ms(bwd_b, evals, BWD_OPS)
         for name in [f"lab_fwd_{s}" for s in chunked.SCANS] + ["lab_bwd_v3"]:
-            log(f"{name}: kernel {ms[name][0]:.4f} ms, plain "
-                f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                f"({bounds[name][1]}), both levels")
+            log(f"{name}: kernel {ms[name][0]:.4f} ms (device "
+                f"{ms[name][3]:.4f} ms), plain {ms[name][1]:.4f} ms, bound "
+                f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), both levels")
 
         p_err, p_ms, p_bounds = phase_lab_probes(device, traced)
     err.update(p_err)

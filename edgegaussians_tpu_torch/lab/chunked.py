@@ -43,7 +43,12 @@ Two implementations, chosen by the device of the input:
 
 - ``csrc/lab_chunked.cu``, the Hopper kernels, for CUDA tensors:
   :func:`chunked_fwd` / :func:`chunked_bwd` launch them or raise, and
-  each launch adds one to ``launch_counts``;
+  each launch adds one to ``launch_counts``. One CTA per frame row, one
+  thread per pixel with its carry in registers; the row's slots staged
+  by position in batches of whole 32-slot segments, each batch's live
+  slots (the -1e30 marker leaves out the dead, which add exact zeros)
+  walked in sub-chunks of 16 with the scan form in registers; the
+  backward's pixel reduction on the tensor cores;
 - :func:`chunked_fwd_ref` / :func:`chunked_bwd_ref`, plain PyTorch over
   chunks of rows and of slots, for CPU tensors, and the yardstick the
   kernels are held to on the card.
@@ -65,7 +70,7 @@ from edgegaussians_tpu_torch.ops.segpair import PIXELS, check_tensor
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/lab_chunked.cu"
 SCANS = ("v3", "noscan", "twolevel", "logsum")
 GROUP = 8           # the two-level scan's group (cumprod_lab.py:70)
-SUB_CHUNK = 32      # the kernels' sub-chunk: one slot per lane of a warp
+SEGMENT = 32        # the kernels stage batches of whole 32-slot segments
 LOG_FLOOR = 1e-30   # log(max(1 - alpha, 1e-30)), cumprod_lab.py:118
 
 # Launches of each kernel since the last reset_launch_counts(); only the
@@ -137,14 +142,14 @@ def chunked_fwd(feats: torch.Tensor, basis: torch.Tensor,
     """feats [T,K,8] f32, basis [8,256] f32, t_in [T,256] f32 (None:
     transmittance 1) -> (img [T,256], t_out [T,256]). CUDA tensors launch
     the ``scan`` form's kernel (``chunk`` a multiple of the kernels' 32-slot
-    sub-chunk); CPU tensors take :func:`chunked_fwd_ref`."""
+    segment); CPU tensors take :func:`chunked_fwd_ref`."""
     chunk = resolve_chunk(feats.shape[1], chunk, scan)
     if _device_kind(feats) == "cpu":
         return chunked_fwd_ref(feats, basis, t_in, scan=scan, chunk=chunk)
     T, K = _check_inputs(feats, basis, t_in=t_in)
-    if chunk % SUB_CHUNK:
-        raise ValueError(f"the kernels walk sub-chunks of {SUB_CHUNK} "
-                         f"slots: chunk {chunk} must be a multiple")
+    if chunk % SEGMENT:
+        raise ValueError(f"the kernels stage batches of whole {SEGMENT}-slot "
+                         f"segments: chunk {chunk} must be a multiple")
     img = torch.empty((T, PIXELS), dtype=torch.float32, device=feats.device)
     t_out = torch.empty_like(img)
     stream = _build.stream(feats.device)

@@ -30,13 +30,22 @@ repository's ``chip_smoke.py`` helpers:
 - the fixture's 12740 means padded to 16384 rows (k = 6, 11, 15) and the
   131072-row cloud (k = 6);
 - the onehot probe on the script's run beside ``onehot @ c`` (both also
-  by their device time from torch.profiler).
+  by their device time from torch.profiler);
+- the kernel lab's scene (chip_smoke.py's phase 8 inputs, PR 14 on): the
+  chunked-scan kernels (csrc/lab_chunked.cu: one thread per pixel, each
+  batch's live slots in sub-chunks of 16 with the scan form in
+  registers), each of the four forward forms and the backward over both
+  levels and per level, and a digest of each entry's outputs, beside V0,
+  the production raster_v2 kernels, on the same frame. Their bits are
+  held elsewhere: tests/test_torch_lab.py and tests/test_torch_lab_order.py
+  on the CPU, the ``lab`` tests of tests/test_torch_kernels.py (run with
+  ``--noconftest``) and chip_smoke.py phase 8 on the card.
 
 CUDA events, median of 5 blocks; the ``*_device_ms`` and ``*_alone_ms``
 keys are device time of calls queued behind a sleeping kernel
 (chip_smoke.py's queued_ms), which the wrappers' ~20 us of host work a
 call does not pace. Each turn prints one JSON line with its times and the
-compiler's register and shared-memory report of the six sources; the
+compiler's register and shared-memory report of the seven sources; the
 run ends with a table of the turns and the card's name and power limit.
 A tree is a checkout of the repository, e.g. the parent commit unpacked
 with ``git archive`` into a git-ignored directory, or a directory holding
@@ -112,6 +121,7 @@ def turn(root: str) -> dict:
         out.update(dense_turn(cs, device))
         out.update(v1_turn(cs, device))
         out.update(pair_turn(cs, device))
+        out.update(lab_turn(cs, device))
         t = probes.case_tensors(ONEHOT_CASE, device)
         lib = cs.probe_library(ONEHOT_CASE, t)
         out["probe_onehot_ms"] = cs.cuda_ms(
@@ -124,7 +134,7 @@ def turn(root: str) -> dict:
         "probe_onehot_kernel")[0]
     out["probe_onehot_library_device_ms"] = cs.profiled_device(lib, "")[0]
     for name in ("segpair", "raster_v2", "raster_v1", "pair", "knn",
-                 "lab_probes"):
+                 "lab_chunked", "lab_probes"):
         log = str(_build.library_path(name)) + ".log"
         out[f"{name}_ptxas"] = [ln.strip() for ln in open(log)
                                 if "registers" in ln or "Compiling" in ln
@@ -274,6 +284,59 @@ def pair_turn(cs, device) -> dict:
                                       20))
         out[f"pair_{k}_longest_run_alone_ms"] = alone
     out["pair_longest_run"] = [int(one[2]) for _, one in rows]
+    torch.cuda.synchronize()
+    return out
+
+
+def lab_turn(cs, device) -> dict:
+    """The lab's chunked-scan kernels on the lab scene (chip_smoke.py's
+    phase 8 inputs: level 1, then level 2 fed the plain level 1's t_out;
+    the backward on the plain total and a seeded cotangent): each of the
+    four forward forms and the backward over both levels, by events and
+    device time, each level's device time alone, and a digest of each
+    entry's outputs; beside them V0, the production raster_v2 kernels, on
+    the same frame (the lab's own comparison)."""
+    import torch
+    from edgegaussians_tpu_torch.lab import chunked, scene
+    from edgegaussians_tpu_torch.ops import raster_v2
+    sc = scene.bench_scene(device=device)
+    basis, f1, f2, rows = sc.basis, sc.feats1, sc.feats2, sc.rows2
+    c1, c2 = sc.counts1, sc.counts2
+    gen = torch.Generator(device=device).manual_seed(8)
+    g1 = torch.rand((f1.shape[0], 256), generator=gen, device=device)
+    ref1, tref1 = chunked.chunked_fwd_ref(f1, basis)
+    tin2 = tref1[rows].contiguous()
+    ref2, _ = chunked.chunked_fwd_ref(f2, basis, tin2)
+    total = ref1.clone()
+    total[rows] += ref2
+    g2, prior2, total2 = (x[rows].contiguous() for x in (g1, ref1, total))
+    levels = {
+        "fwd_v0": (lambda: raster_v2.composite_fwd_seg(f1, c1, basis),
+                   lambda: raster_v2.composite_fwd_seg(f2, c2, basis, tin2)),
+        "bwd_v0": (lambda: raster_v2.composite_bwd_seg(f1, c1, basis, g1,
+                                                       None, total),
+                   lambda: raster_v2.composite_bwd_seg(f2, c2, basis, g2,
+                                                       tin2, total2)),
+        "bwd_v3": (lambda: chunked.chunked_bwd(f1, basis, g1, None, None,
+                                               total),
+                   lambda: chunked.chunked_bwd(f2, basis, g2, tin2, prior2,
+                                               total2)),
+    }
+    for scan in chunked.SCANS:
+        levels[f"fwd_{scan}"] = (
+            lambda scan=scan: chunked.chunked_fwd(f1, basis, scan=scan),
+            lambda scan=scan: chunked.chunked_fwd(f2, basis, tin2,
+                                                  scan=scan))
+    out = {}
+    for name, (l1, l2) in levels.items():
+        def both(l1=l1, l2=l2):
+            return l1(), l2()
+        out[f"lab_{name}_ms"] = cs.cuda_ms(both, 20)
+        out[f"lab_{name}_device_ms"] = cs.queued_ms(both, 20)
+        for lv, fn in ((1, l1), (2, l2)):
+            out[f"lab_{name}_level{lv}_device_ms"] = cs.queued_ms(fn, 20)
+        out[f"lab_{name}_digest"] = digest(
+            x for call in (l1, l2) for x in cs.as_tuple(call()))
     torch.cuda.synchronize()
     return out
 

@@ -102,8 +102,9 @@ def test_library_path_hashes_the_headers_a_source_includes(tmp_path,
 def test_compositor_header_rebuilds_both_compositor_libraries(tmp_path,
                                                               monkeypatch):
     """The repository's own sources: csrc/segpair.cu, csrc/pair.cu,
-    csrc/raster_v2.cu and csrc/raster_v1.cu share csrc/compositor.cuh; an
-    edit of it moves those libraries and no other."""
+    csrc/raster_v2.cu, csrc/raster_v1.cu and the lab's
+    csrc/lab_chunked.cu share csrc/compositor.cuh; an edit of it moves
+    those libraries and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -112,7 +113,8 @@ def test_compositor_header_rebuilds_both_compositor_libraries(tmp_path,
     with open(csrc / "compositor.cuh", "a") as f:
         f.write("// edited\n")
     moved = {n for n in names if _build.library_path(n) != before[n]}
-    assert moved == {"pair", "raster_v1", "raster_v2", "segpair"}
+    assert moved == {"lab_chunked", "pair", "raster_v1", "raster_v2",
+                     "segpair"}
 
 
 def test_wrappers_bind_constant_prototypes():

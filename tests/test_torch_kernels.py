@@ -712,6 +712,102 @@ def _check_lab_fwd(got, ref, scan):
     assert bool((got[1][~live] < 1e-4).all())
 
 
+def _flat_frame(t, k, alpha, dead):
+    """[t,k,8] of slots whose alpha is ``alpha`` on every pixel (log a is
+    the constant term, the guard sits at it), the -1e30 marker where
+    ``dead`` [t,k] is set."""
+    feats = np.zeros((t, k, 8), np.float32)
+    feats[..., 5] = feats[..., 6] = np.log(alpha)
+    feats[..., 5][dead] = -1e30
+    return feats
+
+
+def lab_order_cases():
+    """The frames the lab kernels' walk is held on (here on the card, in
+    tests/test_torch_lab_order.py by a CPU model of the walk), each
+    (feats, t_in or None, chunk) in NumPy:
+
+    - ``scene_l1`` / ``scene_l2``: the lab scene cut to 2000 Gaussians at
+      128x128 (k1 32, k2 64, t2 8), level 2 fed level 1's plain t_out:
+      K = 32 and 64, dead slots a tail of each row;
+    - ``interleaved``: ~10% dead slots among the live ones, rows with no
+      live slot (count 0), rows entering saturated;
+    - ``noscan_dead_end``: chunks of 32 whose last slot is dead (rows 0-1;
+      row 1 also the three before it; row 2 random slots with slot 31
+      dead; row 3 every slot live), so that the ``noscan`` carry, which
+      moves by the chunk's last slot by position, stays as it is there;
+    - ``k384``: K = 384, the lab's level-2 width, over three chunks;
+    - ``all_dead``: every slot dead, t_in random: img 0, t_out = t_in,
+      dfeats 0.
+    """
+    sc = lab_scene.bench_scene(n=2000, width=128, height=128, k1=32, k2=64,
+                               t2=8)
+    _, tout1 = chunked.chunked_fwd_ref(sc.feats1, sc.basis)
+    feats, _, t_in, _ = _random_frame(11, t=16, k=256)
+    dead = np.zeros((4, 64), bool)
+    dead[:2, [31, 63]] = True
+    dead[1, 28:31] = True
+    end = _flat_frame(4, 64, 0.05, dead)
+    end[2] = _random_frame(13, t=8, k=64, counts=(64,))[0][0]
+    end[2, 31, 5] = -1e30
+    r = np.random.default_rng(14)
+    return {
+        "scene_l1": (sc.feats1.numpy(), None, 128),
+        "scene_l2": (sc.feats2.numpy(), tout1[sc.rows2].numpy(), 128),
+        "interleaved": (feats, t_in, 128),
+        "noscan_dead_end": (end, None, 32),
+        "k384": (_random_frame(12, t=8, k=384, counts=(
+            0, 5, 200, 384, 300, 383, 17, 256))[0],
+                 r.uniform(0.2, 1.0, (8, 256)).astype(np.float32), 128),
+        "all_dead": (_flat_frame(3, 64, 0.5, np.ones((3, 64), bool)),
+                     r.uniform(0.2, 1.0, (3, 256)).astype(np.float32), 64),
+    }
+
+
+@pytest.mark.parametrize("case", ["scene_l1", "scene_l2", "interleaved",
+                                  "noscan_dead_end", "k384", "all_dead"])
+def test_lab_kernels_skip_dead_slots_exactly(device, case):
+    """Every lab entry on the dead-slot cases of lab_order_cases against
+    its plain version (the gates of _check_lab_fwd; dfeats 1e-4 of
+    max-abs), two launches bit-equal; rows with no live slot give img 0,
+    t_out = t_in and dfeats 0 exactly."""
+    feats, t_in, chunk = lab_order_cases()[case]
+    t = feats.shape[0]
+    feats = torch.from_numpy(feats).to(device)
+    t_in = None if t_in is None else torch.from_numpy(t_in).to(device)
+    g, prior, total = (torch.from_numpy(x).to(device)
+                       for x in _lab_planes(15, t))
+    basis = tiles.pixel_basis(16, device=device)
+    empty = (feats[..., 5] <= -1e29).all(dim=1)
+    ones = torch.ones((t, 256), device=device)
+    for scan in chunked.SCANS:
+        got = chunked.chunked_fwd(feats, basis, t_in, scan=scan, chunk=chunk)
+        again = chunked.chunked_fwd(feats, basis, t_in, scan=scan,
+                                    chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+        _check_lab_fwd(got, chunked.chunked_fwd_ref(
+            feats, basis, t_in, scan=scan, chunk=chunk), scan)
+        assert bool((got[0][empty] == 0).all())
+        assert torch.equal(got[1][empty],
+                           (ones if t_in is None else t_in)[empty])
+    got = chunked.chunked_bwd(feats, basis, g, t_in, prior, total,
+                              chunk=chunk)
+    again = chunked.chunked_bwd(feats, basis, g, t_in, prior, total,
+                                chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "dfeats changed between launches"
+    ref = chunked.chunked_bwd_ref(feats, basis, g, t_in, prior, total,
+                                  chunk=chunk)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-4 * ref.abs().max().item())
+    assert bool((got[feats[..., 5] <= -1e29] == 0).all())
+    assert bool((got[..., 6:] == 0).all())
+    if case == "all_dead":
+        assert bool(empty.all())
+
+
 @pytest.mark.parametrize("scan", list(chunked.SCANS))
 @pytest.mark.parametrize("with_t_in", [False, True])
 def test_lab_chunked_fwd_kernels_match_plain_versions(device, scan,

@@ -321,11 +321,12 @@ def test_train_cli_runs_one_rank_meshes(cfg_path, flags, steps):
     (dict(model={"staged_capacity": True}), "staged"),
     (dict(training={"step_mode": "view_batch"}), "view_batch"),
 ])
-def test_train_refuses_unported_schedule(cfg_path, change, match):
+def test_staged_capacity_runs_and_view_batches_need_a_views_axis(
+        cfg_path, change, match):
     """Staged capacity runs: 2 epochs of 3 views start at the staged
     capacity (1024 rows for 200 seeds, under the 2048 maximum) and grow
-    only past the threshold. View batches run, and are refused only on a
-    mesh without a 'views' axis."""
+    only past the threshold. View batches are refused on a mesh without a
+    'views' axis."""
     _, d = cfg_path(**change.get("model", {}))
     d["training"].update(change.get("training", {}))
     cfg = config_from_dict(d)
@@ -389,7 +390,7 @@ def test_train_runs_orientation_and_wayward_schedules(cfg_path, change):
         else n_alive == seeds.shape[0]
 
 
-def test_shipped_recipe_is_refused_past_its_first_density_epoch():
+def test_every_shipped_recipe_is_accepted():
     """Every shipped recipe is accepted as it stands: the ABC recipes at
     their full num_epochs (the ratio loss after epoch 100, the direction
     loss after 250, their kNN and the wayward cull are ported) and the
