@@ -110,8 +110,11 @@ Phases, in order; any failure exits non-zero:
    states bit for bit equal, epoch losses within 2e-3 relative (plus the
    log's last digit) of a single-process run of the same config in this
    call; then ``--mesh_gauss 1`` on one NCCL rank. The shard-sum kernel
-   is also timed on one [16384, 128] shard beside its plain version and
-   ``torch.sum`` (their device times come in phase 8).
+   is also held to its plain version on one [16384, 128] shard and timed
+   beside it, ``torch.sum`` and the bytes bound, warm (the shard in L2)
+   and cold (10 distinct shards, 84 MB, cycled), by events and by the
+   device time of calls queued behind a sleeping kernel (their profiler
+   device times come in phase 8).
 
 8. The kernel lab (``edgegaussians_tpu_torch/lab/``) at the JAX labs'
    size: 20000 random Gaussians at 800x800, the two-level frame at k1
@@ -135,9 +138,12 @@ Phases, in order; any failure exits non-zero:
    allocation, stream lookup, the ctypes call with its launch, the whole
    wrapper), each beside the form it replaced, and the device activities
    per call from the profiler, which must be one kernel (with
-   ``--profile_dir``, counted on the host's launch records); and the
-   shard-sum kernel's and torch.sum's device times. Every torch.profiler
-   window of the run is in phase 8, after the in-process training runs.
+   ``--profile_dir``, counted on the host's launch records); the vmem_dyn
+   probe's device time over every activity of its calls beside its
+   kernel's, and one device kernel a call on both its runs; the shard-sum
+   kernel's and torch.sum's device times, warm and cold, and one device
+   kernel a shard-sum call. Every torch.profiler window of the run is in
+   phase 8, after the in-process training runs.
 
 9. The DTU recipe at full width (``configs/DTU.json``): the tracked
    DTU-shaped scan ``synthetic_data/DTU_synth/data/dtu_s0`` (30 views at
@@ -184,6 +190,7 @@ import contextlib
 import ctypes
 import importlib.util
 import io
+import itertools
 import json
 import math
 import os
@@ -295,6 +302,9 @@ MULTI_LOSS_RTOL = 2e-3      # epoch losses, multi-rank vs one process
 WORKER = os.path.join(REPO, "scripts", "torch_multiprocess_worker.py")
 RANKS_TIMEOUT = 300
 SHARD_ROWS = 16384          # rows of the probe's shard per rank
+# distinct shards cycled for L2-cold shard-sum calls: 84 MB against the
+# card's 50 MB of L2, so each call's shard was evicted since its last read
+COLD_SHARDS = 10
 # phase 8: the lab's entry points; the logsum form's tolerance (a sum of
 # logs in another order than the plain version's cumsum, then exp, where
 # the other forms multiply the same factors)
@@ -2089,47 +2099,100 @@ def phase_band_mode(device):
     return launches
 
 
+def shards(device, n: int = 1) -> list:
+    """``n`` distinct seeded [SHARD_ROWS, 128] shards on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    return [torch.rand((SHARD_ROWS, 128), generator=gen, device=device)
+            for _ in range(n)]
+
+
+def cycling(fn, xs):
+    """A call of ``fn`` on the next of ``xs`` at each call, round and
+    round: with more bytes in ``xs`` than the L2 holds, each call's input
+    comes from device memory."""
+    it = itertools.cycle(xs)
+    return lambda: fn(next(it))
+
+
 def phase_shard_sum_kernel(device):
     """The shard-sum kernel on one [SHARD_ROWS, 128] shard against its
-    plain version; its time beside the plain version's, torch.sum's and
-    the bytes bound."""
+    plain version and the float64 sum; its time beside the plain
+    version's, torch.sum's and the bytes bound, warm (the same shard, in
+    L2) and cold (COLD_SHARDS shards cycled), by events and by the device
+    time of queued calls. Returns the error, the times, the bound and the
+    kernels line's further keys."""
     from edgegaussians_tpu_torch.ops import shard_sum
     log(f"== phase 7 (shard_sum): the shard-sum kernel vs its plain "
         f"version on a [{SHARD_ROWS}, 128] shard")
-    gen = torch.Generator(device=device).manual_seed(6)
-    x = torch.rand((SHARD_ROWS, 128), generator=gen, device=device)
+    xs = shards(device, COLD_SHARDS)
+    x = xs[0]
+    kern = shard_sum.shard_sum2x
+
+    def lib(t):
+        return torch.sum(t, 0, keepdim=True)
     with torch.no_grad():
-        got = shard_sum.shard_sum2x(x)
+        got = kern(x)
+        again = kern(x)
         plain = shard_sum.shard_sum2x_ref(x)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("shard_sum: two launches differ")
         exact = (2.0 * x.double()).sum(0, keepdim=True)
         err = (got - plain).abs().max().item()
         rel = ((got.double() - exact).abs() / exact).max().item()
         if not rel <= 1e-5:
             raise AssertionError(f"shard_sum: {rel:.3g} from the float64 sum")
-        ms = (cuda_ms(lambda: shard_sum.shard_sum2x(x), 200),
+        ms = (cuda_ms(lambda: kern(x), 200),
               cuda_ms(lambda: shard_sum.shard_sum2x_ref(x), 200),
-              cuda_ms(lambda: torch.sum(x, 0, keepdim=True), 200))
+              cuda_ms(lambda: lib(x), 200),
+              queued_ms(lambda: kern(x), 50))
+        t = {"library_device_ms": queued_ms(lambda: lib(x), 50),
+             "cold_ms": cuda_ms(cycling(kern, xs), 200),
+             "cold_device_ms": queued_ms(cycling(kern, xs), 50),
+             "library_cold_ms": cuda_ms(cycling(lib, xs), 200),
+             "library_cold_device_ms": queued_ms(cycling(lib, xs), 50)}
     bound = bound_ms(x.numel() * 4 + 128 * 4, x.numel(), (1, 0))
     log(f"shard_sum: max_abs_err vs plain {err:.3g} (rel to float64 "
-        f"{rel:.3g}); kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
-        f"torch.sum {ms[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-    return err, ms, bound
+        f"{rel:.3g}), two launches bit-equal; warm: kernel {ms[0]:.4f} ms "
+        f"(device {ms[3]:.4f} ms), plain {ms[1]:.4f} ms, torch.sum "
+        f"{ms[2]:.4f} ms (device {t['library_device_ms']:.4f} ms); cold "
+        f"({COLD_SHARDS} shards cycled): kernel {t['cold_ms']:.4f} ms "
+        f"(device {t['cold_device_ms']:.4f} ms), torch.sum "
+        f"{t['library_cold_ms']:.4f} ms (device "
+        f"{t['library_cold_device_ms']:.4f} ms); bound {bound[0]:.4f} ms "
+        f"({bound[1]}); device = calls queued behind a sleeping kernel")
+    return err, ms, bound, {"shard_sum": t}
 
 
-def shard_sum_device(device) -> None:
+def shard_sum_device(device, traced: bool = False) -> dict:
     """The device times of the shard-sum kernel and of torch.sum on
-    phase 7's shard, from torch.profiler (run in phase 8, where every
-    profiler window of the run is: see profiled_device)."""
+    phase 7's shard, warm and cold (COLD_SHARDS shards cycled), from
+    torch.profiler (run in phase 8, where every profiler window of the run
+    is: see profiled_device), as keys of the kernels line; raises unless a
+    call after the first is one device kernel, the shard-sum's."""
     from edgegaussians_tpu_torch.ops import shard_sum
-    gen = torch.Generator(device=device).manual_seed(6)
-    x = torch.rand((SHARD_ROWS, 128), generator=gen, device=device)
+    xs = shards(device, COLD_SHARDS)
+    kern = shard_sum.shard_sum2x
+
+    def lib(t):
+        return torch.sum(t, 0, keepdim=True)
     with torch.no_grad():
-        kern = profiled_device(lambda: shard_sum.shard_sum2x(x), "shard_sum")
-        lib = profiled_device(lambda: torch.sum(x, 0, keepdim=True), "")
-    log(f"shard_sum device time: kernel {kern[0]:.4f} ms ({kern[1]:.2f} "
-        f"activities per call), torch.sum {lib[0]:.4f} ms ({lib[1]:.2f}), "
-        "profiler")
+        dev = {"kernel": profiled_device(lambda: kern(xs[0]), "shard_sum"),
+               "kernel_cold": profiled_device(cycling(kern, xs),
+                                              "shard_sum"),
+               "torch.sum": profiled_device(lambda: lib(xs[0]), ""),
+               "torch.sum_cold": profiled_device(cycling(lib, xs), "")}
+        per_call, seen = one_kernel_per_call(lambda: kern(xs[0]),
+                                             "shard_sum2x_kernel", traced)
+    log("shard_sum device time (profiler): " + ", ".join(
+        f"{k} {ms:.4f} ms ({n:.2f} activities per call)"
+        for k, (ms, n) in dev.items())
+        + f"; device activities per call {per_call:.2f} (records per "
+        f"window: host launches, memsets or memcpys, kernel, other: {seen})")
+    return {"profiler_device_ms": dev["kernel"][0],
+            "profiler_cold_device_ms": dev["kernel_cold"][0],
+            "library_profiler_device_ms": dev["torch.sum"][0],
+            "library_profiler_cold_device_ms": dev["torch.sum_cold"][0]}
 
 
 def phase_view_batch(tmp: str, scan: str):
@@ -2370,7 +2433,8 @@ def phase_lab_kernels(device, traced: bool = False):
     scene (level 1, then level 2 fed the plain level 1's t_out) and each
     probe against its plain version and the oracle; their times.
     ``traced``: earlier phases ran under torch.profiler (one_kernel_per_call
-    then counts host records)."""
+    then counts host records). Returns errors, times, bounds and the
+    kernels line's further keys."""
     from edgegaussians_tpu_torch.lab import chunked, probes, scene
     log("== phase 8: lab kernels vs plain versions on the lab scene, "
         "level 1 and level 2")
@@ -2451,11 +2515,11 @@ def phase_lab_kernels(device, traced: bool = False):
                 f"{ms[name][3]:.4f} ms), plain {ms[name][1]:.4f} ms, bound "
                 f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), both levels")
 
-        p_err, p_ms, p_bounds = phase_lab_probes(device, traced)
+        p_err, p_ms, p_bounds, extra = phase_lab_probes(device, traced)
     err.update(p_err)
     ms.update(p_ms)
     bounds.update(p_bounds)
-    return err, ms, bounds
+    return err, ms, bounds, extra
 
 
 def probe_library(name: str, t):
@@ -2691,10 +2755,13 @@ def phase_lab_probes(device, traced: bool = False):
     """Each probe kernel on the script's runs against its plain version
     and the oracle; per probe the times of its runs, summed, beside the
     bytes bound and the library call's, and its device time from the
-    profiler."""
+    profiler: its kernel's and every activity of its calls' (a key of the
+    kernels line beyond the contract's, as are the shard-sum's device
+    times, shard_sum_device)."""
     from edgegaussians_tpu_torch.lab import probes
-    err, ms, bounds = {}, {}, {}
-    per = {p: [0.0, 0.0, 0.0, 0.0, True, 0.0, 0.0] for p in probes.PROBES}
+    err, ms, bounds, extra = {}, {}, {}, {}
+    per = {p: [0.0, 0.0, 0.0, 0.0, True, 0.0, 0.0, 0.0]
+           for p in probes.PROBES}
     for name, case in probes.CASES.items():
         out_k, e_k, tol = probes.run_case(name, device)
         out_r, e_r, _ = probes.run_case(name, device, plain=True)
@@ -2720,24 +2787,44 @@ def phase_lab_probes(device, traced: bool = False):
         acc[3] += probe_bytes(case.probe, t, out_k)
         acc[5] += profiled_device(lambda: case.call(kern, t),
                                   f"probe_{case.probe}_kernel")[0]
+        acc[7] += profiled_device(lambda: case.call(kern, t), "")[0]
         log(f"{name}: oracle error kernel {e_k:.3g} plain {e_r:.3g}, kernel "
             f"vs plain {(out_k - out_r).abs().max().item():.3g}")
-    for p, (k_ms, p_ms, l_ms, nbytes, has_lib, dev_ms, l_dev) in \
+    for p, (k_ms, p_ms, l_ms, nbytes, has_lib, dev_ms, l_dev, call_dev) in \
             per.items():
         key = f"probe_{p}"
-        ms[key] = (k_ms, p_ms, l_ms if has_lib else None)
+        ms[key] = (k_ms, p_ms, l_ms if has_lib else None, dev_ms or None)
+        extra[key] = {"call_device_ms": call_dev or None}
         bounds[key] = bound_ms(nbytes, 0, (0, 0))
         log(f"{key}: kernel {k_ms:.4f} ms (device "
-            + (f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured")
+            + (f"{dev_ms:.4f} ms, every activity of the call {call_dev:.4f}"
+               f" ms" if dev_ms > 0 else "not measured")
             + f", profiler), plain {p_ms:.4f} ms, library "
             + (f"{l_ms:.4f} ms (device {l_dev:.4f} ms, profiler)"
                if has_lib else "none")
             + f", bound {bounds[key][0]:.5f} ms ({bounds[key][1]}; "
             f"{nbytes / 1e6:.3f} MB)")
     onehot_device(device, per["onehot"][5], per["onehot"][6], traced)
+    vmem_dyn_device(device, traced)
     probe_host_split(device, traced)
-    shard_sum_device(device)
-    return err, ms, bounds
+    extra["shard_sum"] = shard_sum_device(device, traced)
+    return err, ms, bounds, extra
+
+
+def vmem_dyn_device(device, traced: bool = False) -> None:
+    """Phase 8: each of the vmem_dyn probe's runs (P7a, P7b) launches one
+    device kernel a call and nothing else; raises otherwise."""
+    from edgegaussians_tpu_torch.lab import probes
+    for name, case in probes.CASES.items():
+        if case.probe != "vmem_dyn":
+            continue
+        t = probes.case_tensors(name, device)
+        per_call, seen = one_kernel_per_call(
+            lambda: case.call(probes.probe_vmem_dyn, t),
+            "probe_vmem_dyn_kernel", traced)
+        log(f"{name}: device activities per call {per_call:.2f} "
+            f"(profiler; records per window: host launches, memsets or "
+            f"memcpys, kernel, other: {seen})")
 
 
 def onehot_device(device, dev_ms: float, lib_dev_ms: float,
@@ -3154,7 +3241,7 @@ def main() -> int:
         bounds.update(bounds_p)
     phase_whole_path(device)
     band_launches = phase_band_mode(device)
-    err["shard_sum"], ms["shard_sum"], bounds["shard_sum"] = \
+    err["shard_sum"], ms["shard_sum"], bounds["shard_sum"], extra = \
         phase_shard_sum_kernel(device)
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     with tempfile.TemporaryDirectory() as tmp:
@@ -3194,11 +3281,13 @@ def main() -> int:
         f"of each seg kernel; the shard-sum probe under all-reduce err "
         f"{probe_err:.3g}")
     lab_launches = phase_lab_path()
-    err_l, ms_l, bounds_l = phase_lab_kernels(
+    err_l, ms_l, bounds_l, extra_l = phase_lab_kernels(
         device, traced=args.profile_dir is not None)
     err.update(err_l)
     ms.update(ms_l)
     bounds.update(bounds_l)
+    for name, keys in extra_l.items():
+        extra.setdefault(name, {}).update(keys)
     from edgegaussians_tpu_torch.ops import (
         knn, pair, rank_sum, raster_v1, raster_v2, segpair, shard_sum)
     kernels = []
@@ -3240,7 +3329,8 @@ def main() -> int:
             "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
             "library_ms": ms[name][2] if len(ms[name]) > 2 else None,
-            "device_ms": ms[name][3] if len(ms[name]) > 3 else None})
+            "device_ms": ms[name][3] if len(ms[name]) > 3 else None,
+            **extra.get(name, {})})
         at = [(k, t) for k, t in recipe.items()
               if k == name or k.startswith(name + "_k")]
         if at:

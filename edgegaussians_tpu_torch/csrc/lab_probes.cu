@@ -46,13 +46,19 @@
 //   vmem_dyn   a scratch buffer [buf_rows, cols], zero at step 0, kept
 //              across the steps: step s reads (or, with rmw, adds x[s]
 //              into) the window at row offs[s]. The TPU keeps the buffer
-//              across SEQUENTIAL grid steps; CUDA blocks run in no order
-//              and share no shared memory, and [264, 256] f32 (270,336 B)
-//              is above the 232,448 B a block may have. So each CTA owns a
-//              128-column slab of the buffer (135,168 B of dynamic shared
-//              memory, after cudaFuncSetAttribute) and loops over the steps
-//              in order: step 1 sees step 0's sums in the rows both
-//              windows cover.
+//              across SEQUENTIAL grid steps; here no buffer is kept at
+//              all: owner-computes, as dyn_write. Each thread owns one
+//              16-byte vector (s, r, c) of out [steps, win, cols] and
+//              computes it where it is stored, so the grid spreads over
+//              steps * win * cols / 4 vectors. Read mode stores 0 + 2 *
+//              x[s, r, c] (the buffer is never written, so its * 0 term is
+//              an exact +0). rmw walks the steps t = 0..s in order and adds
+//              x[t, R - offs[t], c] for each fitting window that covers
+//              buffer row R = offs[s] + r, from 0: the additions of the
+//              sequential buffer in its order, so the same bits; later
+//              steps cannot change out[s]. Each CTA loads offs into shared
+//              memory once. A step whose window does not fit is written as
+//              zeros, so one launch writes every element.
 //
 // Windows whose offset lies outside the array are skipped (the offsets are
 // read on the device, where nothing can raise).
@@ -61,8 +67,9 @@
 // to 1 MB moved; dyn_write 0.5 MB written, dyn_read 0.25 MB read and 0.25
 // MB written) launch latency: the least time at 3.35 TB/s is 0.04-0.3 us,
 // a launch some microseconds. The designs keep every access coalesced and
-// move each byte once, in one launch per call; the probes are about the
-// constructs, not time.
+// move each byte once (but vmem_dyn's rmw, which reads a row of x again
+// for each later step whose window covers it), in one launch per call;
+// the probes are about the constructs, not time.
 
 #include <cuda_runtime.h>
 
@@ -76,8 +83,6 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int ONEHOT_ROWS = 16;       // onehot: most output rows a CTA owns
 constexpr int ONEHOT_VEC_PER_THREAD = 2;
 constexpr int ONEHOT_LOADS = 8;       // source rows loaded side by side
-constexpr int SLAB = 128;             // vmem_dyn: buffer columns per CTA
-constexpr int VMEM_THREADS = 512;
 
 __global__ void __launch_bounds__(THREADS)
 probe_roll_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -290,35 +295,42 @@ __global__ void probe_transpose_kernel(const float* __restrict__ x,
   }
 }
 
-// grid cols / SLAB: CTA s owns columns [s * SLAB, (s + 1) * SLAB) of the
-// buffer and of x / out [steps, win, cols]
-__global__ void __launch_bounds__(VMEM_THREADS)
+// grid cdiv(steps * win * cols4, THREADS): thread i owns 16-byte vector i
+// of out [steps, win, cols4]; x alike. Dynamic shared memory: the steps'
+// offsets.
+__global__ void __launch_bounds__(THREADS)
 probe_vmem_dyn_kernel(const int* __restrict__ offs,
-                      const float* __restrict__ x, float* __restrict__ out,
-                      int steps, int win, int cols, int buf_rows, int rmw) {
-  extern __shared__ __align__(16) float buf[];
-  const int c0 = blockIdx.x * SLAB;
-  for (int i = threadIdx.x; i < buf_rows * SLAB; i += VMEM_THREADS)
-    buf[i] = 0.0f;
+                      const float4* __restrict__ x, float4* __restrict__ out,
+                      int steps, int win, int cols4, int buf_rows, int rmw) {
+  extern __shared__ int s_offs[];
+  for (int t = threadIdx.x; t < steps; t += THREADS) s_offs[t] = offs[t];
   __syncthreads();
-  for (int s = 0; s < steps; ++s) {   // the TPU's sequential grid, in order
-    const int off = offs[s];
-    if (window_fits(off, win, buf_rows)) {
-      for (int i = threadIdx.x; i < win * SLAB; i += VMEM_THREADS) {
-        const int r = i / SLAB;
-        const int c = i % SLAB;
-        const size_t xi = (static_cast<size_t>(s) * win + r) * cols + c0 + c;
-        float* cell = buf + (off + r) * SLAB + c;
-        if (rmw) {
-          *cell += x[xi];
-          out[xi] = *cell;
-        } else {
-          out[xi] = *cell * 0.0f + x[xi] * 2.0f;
-        }
+  const size_t per_step = static_cast<size_t>(win) * cols4;
+  const size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= per_step * steps) return;
+  const int s = static_cast<int>(i / per_step);
+  const int r = static_cast<int>(i % per_step / cols4);
+  const int c = static_cast<int>(i % cols4);
+  const int off = s_offs[s];
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (window_fits(off, win, buf_rows)) {
+    if (rmw) {
+      const int row = off + r;   // the buffer row this element reads
+      for (int t = 0; t <= s; ++t) {   // the steps in their order
+        const int o = s_offs[t];
+        if (window_fits(o, win, buf_rows) && row >= o && row < o + win)
+          add_to(v, __ldg(x + (static_cast<size_t>(t) * win + (row - o)) *
+                                  cols4 + c));
       }
+    } else {
+      const float4 a = __ldg(x + i);
+      v.x += 2.0f * a.x;
+      v.y += 2.0f * a.y;
+      v.z += 2.0f * a.z;
+      v.w += 2.0f * a.w;
     }
-    __syncthreads();   // the next step's window may overlap this one
   }
+  out[i] = v;
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -409,18 +421,19 @@ int probe_transpose(const float* x, float* out, int rows, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cols is a multiple of SLAB; buf_rows * SLAB * 4 B fits a block
+// win >= 1; cols a multiple of 4 (16-byte rows), x and out 16-byte
+// aligned; steps * 4 B of shared memory within 48 KB
 int probe_vmem_dyn(const int* offs, const float* x, float* out, int steps,
                    int win, int cols, int buf_rows, int rmw, void* stream) {
-  const int smem = buf_rows * SLAB * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_vmem_dyn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cols > 0) {
-    probe_vmem_dyn_kernel<<<cols / SLAB, VMEM_THREADS, smem,
+  const int cols4 = cols / 4;
+  const long long n_vec = static_cast<long long>(steps) * win * cols4;
+  if (n_vec > 0) {
+    probe_vmem_dyn_kernel<<<static_cast<unsigned>((n_vec + THREADS - 1) /
+                                                  THREADS),
+                            THREADS, steps * sizeof(int),
                             static_cast<cudaStream_t>(stream)>>>(
-        offs, x, out, steps, win, cols, buf_rows, rmw);
+        offs, reinterpret_cast<const float4*>(x),
+        reinterpret_cast<float4*>(out), steps, win, cols4, buf_rows, rmw);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,10 @@ segmented compositor wanted; here each is that construct's Hopper form
 - :func:`probe_vmem_dyn`: a scratch buffer ``[buf_rows, cols]`` kept
   across the steps: step s reads (``rmw`` False: ``buf * 0 + 2 * x[s]``)
   or adds ``x[s]`` into (``rmw`` True) the window at row ``offs[s]``
-  (:177).
+  (:177). The kernel keeps no buffer: each output element walks the
+  steps up to its own and adds, in step order, the x of each fitting
+  window that covers its buffer row; a step whose window does not fit
+  gives zeros. One launch.
 
 Offsets are int32 tensors on the probe's device, read by the kernels at
 run time; windows outside the array are skipped, and where two windows
@@ -32,9 +35,8 @@ in-order grid.
 Each probe has a plain PyTorch version (``*_ref``), which the wrapper
 takes for CPU tensors; CUDA tensors launch the kernel or raise, and each
 launch adds one to ``launch_counts``. The wrappers allocate their results
-with ``torch.empty``, as each kernel writes every element of its result,
-but for vmem_dyn's, whose kernel skips a step whose window does not fit
-(its result is zeroed first). :data:`CASES` holds the script's
+with ``torch.empty``, as each kernel writes every element of its result:
+each call is one launch and no fill. :data:`CASES` holds the script's
 eight runs (its inputs and NumPy oracles, copied) and :func:`run_case`
 runs one through the kernel or the plain version.
 """
@@ -53,10 +55,9 @@ from edgegaussians_tpu_torch.ops.segpair import check_tensor
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/lab_probes.cu"
 PROBES = ("roll", "onehot", "dyn_write", "dyn_read", "transpose",
           "vmem_dyn")
-SLAB = 128                # csrc/lab_probes.cu: vmem_dyn columns per CTA
-SMEM_PER_BLOCK = 232448   # bytes of shared memory a Hopper block may use
-# dyn_write keeps the offsets in shared memory, beside its rows' values,
-# within the 48 KB a block has without cudaFuncSetAttribute
+# dyn_write and vmem_dyn keep the offsets in shared memory (dyn_write
+# beside its rows' values), within the 48 KB a block has without
+# cudaFuncSetAttribute
 MAX_WINDOWS = 8192
 
 # each entry's pointers, then its ints, then the stream
@@ -109,6 +110,12 @@ def _check_windows(win, cols):
         raise ValueError(f"windows of {win} rows x {cols} columns: the "
                          f"kernels take windows of at least 1 row and "
                          f"16-byte rows (a multiple of 4 columns)")
+
+
+def _check_aligned(name, x):
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte vectors, so its "
+                         f"data must start on a 16-byte boundary")
 
 
 def _fits(off: int, win: int, rows: int) -> bool:
@@ -210,9 +217,7 @@ def probe_dyn_read(src: torch.Tensor, offs: torch.Tensor,
     _check_offs(offs, src.device)
     rows, cols = src.shape
     _check_windows(win, cols)
-    if src.data_ptr() % 16:
-        raise ValueError("src: the kernel reads 16-byte vectors, so its "
-                         "data must start on a 16-byte boundary")
+    _check_aligned("src", src)
     out = torch.empty((offs.shape[0] * win, cols), dtype=torch.float32,
                       device=src.device)
     _launch("probe_dyn_read",
@@ -256,7 +261,8 @@ def probe_vmem_dyn(offs: torch.Tensor, x: torch.Tensor, buf_rows: int,
     """x [steps, win, cols] f32 -> [steps, win, cols]: a zero scratch
     buffer [buf_rows, cols] kept across the steps in order; step s's
     window starts at row offs[s] and is read (``buf * 0 + 2 * x[s]``) or,
-    with ``rmw``, has ``x[s]`` added first and is then read."""
+    with ``rmw``, has ``x[s]`` added first and is then read. A step whose
+    window does not fit is skipped and gives zeros."""
     if not _on_cuda(x, "vmem_dyn"):
         return probe_vmem_dyn_ref(offs, x, buf_rows, rmw)
     if x.dim() != 3:
@@ -268,12 +274,12 @@ def probe_vmem_dyn(offs: torch.Tensor, x: torch.Tensor, buf_rows: int,
     if offs.shape[0] != steps:
         raise ValueError(f"offs: one per step ({steps}), got "
                          f"{offs.shape[0]}")
-    if cols % SLAB or buf_rows * SLAB * 4 > SMEM_PER_BLOCK:
-        raise ValueError(f"the kernel keeps {SLAB}-column slabs of the "
-                         f"buffer in shared memory: cols {cols} must be a "
-                         f"multiple of {SLAB} and buf_rows at most "
-                         f"{SMEM_PER_BLOCK // (4 * SLAB)}")
-    out = torch.zeros_like(x)
+    if steps > MAX_WINDOWS:
+        raise ValueError(f"the kernel takes up to {MAX_WINDOWS} steps, got "
+                         f"{steps}")
+    _check_windows(win, cols)
+    _check_aligned("x", x)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     _launch("probe_vmem_dyn",
             (offs.data_ptr(), x.data_ptr(), out.data_ptr(), steps, win,
              cols, buf_rows, int(rmw), _build.stream(x.device)))

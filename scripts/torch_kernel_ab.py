@@ -31,6 +31,12 @@ repository's ``chip_smoke.py`` helpers:
   131072-row cloud (k = 6);
 - the onehot probe on the script's run beside ``onehot @ c`` (both also
   by their device time from torch.profiler);
+- the vmem_dyn probe on the script's runs P7a and P7b, summed, and the
+  shard-sum kernel on chip_smoke.py's phase-7 shard, warm (the
+  same shard, in L2) and cold (chip_smoke.py's COLD_SHARDS shards
+  cycled): events, device time of queued calls, device time from
+  torch.profiler (the kernel's and, for vmem_dyn, every activity of the
+  call: the parent tree's fill too), and a digest of the outputs;
 - the kernel lab's scene (chip_smoke.py's phase 8 inputs, PR 14 on): the
   chunked-scan kernels (csrc/lab_chunked.cu: one thread per pixel, each
   batch's live slots in sub-chunks of 16 with the scan form in
@@ -45,8 +51,10 @@ CUDA events, median of 5 blocks; the ``*_device_ms`` and ``*_alone_ms``
 keys are device time of calls queued behind a sleeping kernel
 (chip_smoke.py's queued_ms), which the wrappers' ~20 us of host work a
 call does not pace. Each turn prints one JSON line with its times and the
-compiler's register and shared-memory report of the seven sources; the
+compiler's register and shared-memory report of the eight sources; the
 run ends with a table of the turns and the card's name and power limit.
+``--probes_only`` times the probes' part alone (a kernel variant's quick
+turn).
 A tree is a checkout of the repository, e.g. the parent commit unpacked
 with ``git archive`` into a git-ignored directory, or a directory holding
 a copy of ``edgegaussians_tpu_torch/`` (a variant of a kernel). Needs a
@@ -69,15 +77,16 @@ ONEHOT_CASE = "P3 onehot-matmul"
 DENSE_CHAIN_SLOTS = (64, 640)
 
 
-def turn(root: str) -> dict:
-    """Build and time ``root``'s kernels; this repository's chip_smoke.py
-    makes the inputs."""
+def turn(root: str, probes_only: bool = False) -> dict:
+    """Build and time ``root``'s kernels (``probes_only``: the vmem_dyn
+    and shard-sum part alone); this repository's chip_smoke.py makes the
+    inputs."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     import edgegaussians_tpu_torch
     from edgegaussians_tpu_torch.lab import probes
-    from edgegaussians_tpu_torch.ops import _build, knn, segpair
+    from edgegaussians_tpu_torch.ops import knn, segpair
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_inputs", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -86,6 +95,9 @@ def turn(root: str) -> dict:
         raise SystemExit("torch_kernel_ab: torch sees no CUDA device")
     device = torch.device("cuda")
     out = {"root": root, "package": edgegaussians_tpu_torch.__file__}
+    if probes_only:
+        with torch.no_grad():
+            return {**out, **probe_turn(cs, device)}
     with torch.no_grad():
         cases, basis = cs.seg_cases(device)
         for c in cases:
@@ -134,11 +146,60 @@ def turn(root: str) -> dict:
         "probe_onehot_kernel")[0]
     out["probe_onehot_library_device_ms"] = cs.profiled_device(lib, "")[0]
     for name in ("segpair", "raster_v2", "raster_v1", "pair", "knn",
-                 "lab_chunked", "lab_probes"):
-        log = str(_build.library_path(name)) + ".log"
-        out[f"{name}_ptxas"] = [ln.strip() for ln in open(log)
-                                if "registers" in ln or "Compiling" in ln
-                                or "spill" in ln]
+                 "lab_chunked"):
+        out[f"{name}_ptxas"] = ptxas(name)
+    with torch.no_grad():   # its profiler windows last, as the onehot's
+        out.update(probe_turn(cs, device))
+    return out
+
+
+def ptxas(name: str) -> list:
+    """The compiler's register, shared-memory and spill lines of
+    ``csrc/<name>.cu`` as built for this turn."""
+    from edgegaussians_tpu_torch.ops import _build
+    log = str(_build.library_path(name)) + ".log"
+    return [ln.strip() for ln in open(log)
+            if "registers" in ln or "Compiling" in ln or "spill" in ln]
+
+
+def probe_turn(cs, device) -> dict:
+    """The vmem_dyn probe on the script's runs P7a and P7b (both runs a
+    call, as chip_smoke.py's phase 8 sums them) and the shard-sum kernel
+    on phase 7's shard, warm and cold: events, device time of queued calls
+    and of the profiler, and digests."""
+    import torch
+    from edgegaussians_tpu_torch.lab import probes
+    from edgegaussians_tpu_torch.ops import shard_sum
+    runs = [(case, probes.case_tensors(name, device))
+            for name, case in probes.CASES.items()
+            if case.probe == "vmem_dyn"]
+
+    def vmem():
+        return [case.call(probes.probe_vmem_dyn, t) for case, t in runs]
+    xs = cs.shards(device, cs.COLD_SHARDS)
+    kern = shard_sum.shard_sum2x
+    out = {"probe_vmem_dyn_ms": cs.cuda_ms(vmem, 200),
+           "probe_vmem_dyn_device_ms": cs.queued_ms(vmem, 50),
+           "probe_vmem_dyn_digest": digest(vmem()),
+           "shard_sum_ms": cs.cuda_ms(lambda: kern(xs[0]), 200),
+           "shard_sum_device_ms": cs.queued_ms(lambda: kern(xs[0]), 50),
+           "shard_sum_cold_ms": cs.cuda_ms(cs.cycling(kern, xs), 200),
+           "shard_sum_cold_device_ms": cs.queued_ms(cs.cycling(kern, xs),
+                                                    50),
+           "shard_sum_digest": digest(kern(x) for x in xs)}
+    # the profiler's windows: the kernel's device time, and every
+    # activity of the call
+    out["probe_vmem_dyn_profiler_device_ms"] = cs.profiled_device(
+        vmem, "probe_vmem_dyn_kernel")[0]
+    out["probe_vmem_dyn_call_device_ms"], out[
+        "probe_vmem_dyn_call_activities"] = cs.profiled_device(vmem, "")
+    out["shard_sum_profiler_device_ms"] = cs.profiled_device(
+        lambda: kern(xs[0]), "shard_sum")[0]
+    out["shard_sum_profiler_cold_device_ms"] = cs.profiled_device(
+        cs.cycling(kern, xs), "shard_sum")[0]
+    torch.cuda.synchronize()
+    for name in ("lab_probes", "shard_sum"):
+        out[f"{name}_ptxas"] = ptxas(name)
     return out
 
 
@@ -356,16 +417,19 @@ def fill_args(cs, cases) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", nargs="+", help="trees, timed in this order")
+    ap.add_argument("--probes_only", action="store_true",
+                    help="time the vmem_dyn and shard-sum part alone")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(turn(args.turn)), flush=True)
+        print(json.dumps(turn(args.turn, args.probes_only)), flush=True)
         return 0
     rows = []
     for root in args.trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--turn", root], capture_output=True,
-                              text=True, timeout=900)
+                               "--turn", root]
+                              + ["--probes_only"] * args.probes_only,
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode

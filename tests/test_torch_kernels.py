@@ -32,17 +32,21 @@ version's max-abs (their suffix ``(total - c_inc) / (1 - alpha)`` carries
 the running sums' last-bit differences, up to 1000x at alpha near 0.999).
 The shard-sum probe: rtol 1e-5 of a float64 sum (uniform draws, so no
 cancellation; the kernel's per-thread sums and tree add in another order
-than the plain version), the same bits on a second launch. Band mode on
+than the plain version), the same bits on a second launch, the bits of
+tests/test_torch_probe_order.py's model of its order (also across calls
+of other row counts and on a second stream), one kernel a call after the
+first. Band mode on
 the seg path: GPU against CPU with the whole-rasterizer tolerances.
 The lab's chunked-scan kernels: image atol 1e-5 and t_out rtol 1e-5 where
 >= 1e-4 (5e-5 for the log-space ``logsum`` form, whose sums run in another
 order than the plain cumsum), dfeats 1e-4 of the plain version's max-abs;
 the probes exactly equal to their plain versions and oracles (the one-hot
-sum within 1e-5); the one-launch dyn_write / dyn_read kernels exactly
-equal on random windows and over poisoned allocations, one device kernel
-per call; the owner-computes onehot kernel bit for bit the in-order sum
-of its rows (the one-hot product adds exact zeros beside the same terms)
-on random ids, one device kernel per call. The seg forward: image atol
+sum within 1e-5); the one-launch dyn_write / dyn_read / vmem_dyn (read
+and rmw) kernels exactly equal on random windows and over poisoned
+allocations, one device kernel per call; the owner-computes onehot
+kernel bit for bit the in-order sum of its rows (the one-hot product
+adds exact zeros beside the same terms) on random ids, one device kernel
+per call. The seg forward: image atol
 1e-5 on runs around its 16-pair groups and 128-pair batches and on stops
 at their edges, the same bits from two launches. The dense kernels at K =
 16, 48, 128 and 640, with and without t_in: the image, t_out and dfeats
@@ -73,6 +77,8 @@ from edgegaussians_tpu_torch.ops import (
     pair, raster_v1, raster_v2, segpair, shard_sum, tiles)
 from edgegaussians_tpu_torch.ops.projection import project_gaussians
 from edgegaussians_tpu_torch.ops.rasterize import rasterize
+
+from test_torch_probe_order import shard_sum_order
 
 pytestmark = pytest.mark.cuda
 
@@ -632,11 +638,21 @@ def test_new_paths_on_gpu_match_cpu_path(device, path):
             torch.testing.assert_close(a, b, rtol=2e-3, atol=3e-4, msg=nm)
 
 
-@pytest.mark.parametrize("rows", [1, 127, 128, 1000, 16384])
+def _shard(rows, seed=None):
+    return np.random.default_rng(rows if seed is None else seed).random(
+        (rows, 128)).astype(np.float32)
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 1000, 16384, 0, 63, 64, 65,
+                                  40000])
 def test_shard_sum_kernel_matches_plain_version(device, rows):
-    """Rows 1, 127 and 1000 leave the 32-warp x 4-row stride ragged."""
-    x = torch.from_numpy(np.random.default_rng(rows).random(
-        (rows, 128)).astype(np.float32)).to(device)
+    """Rows 1, 63, 65, 127 and 1000 leave the kernel's last block of rows
+    ragged; 0 gives zeros. The kernel's bits are those of
+    tests/test_torch_probe_order.py's NumPy model of its order (blocks of
+    rows a CTA, warps, trees, the partials in CTA order), on two
+    launches."""
+    xn = _shard(rows)
+    x = torch.from_numpy(xn).to(device)
     before = shard_sum.launch_counts["shard_sum"]
     got = shard_sum.shard_sum2x(x)
     again = shard_sum.shard_sum2x(x)
@@ -644,10 +660,41 @@ def test_shard_sum_kernel_matches_plain_version(device, rows):
     assert shard_sum.launch_counts["shard_sum"] == before + 2
     assert got.shape == (1, 128)
     assert torch.equal(got, again), "the sum changed between launches"
+    assert np.array_equal(got.cpu().numpy(), shard_sum_order(xn))
     exact = (2.0 * x.double()).sum(0, keepdim=True)
     torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=0)
     torch.testing.assert_close(shard_sum.shard_sum2x_ref(x).double(), exact,
                                rtol=1e-5, atol=0)
+
+
+def test_shard_sum_ticket_resets_across_row_counts(device):
+    """Calls of other grid sizes in a row (16384 rows, then 1, 0, 16384,
+    300 and 16384 again), each the order model's bits: every launch finds
+    the ticket at 0 and leaves it there. A second stream has its own
+    workspace and gives the same bits."""
+    for i, rows in enumerate((16384, 1, 0, 16384, 300, 16384)):
+        x = _shard(rows, seed=i)
+        got = shard_sum.shard_sum2x(torch.from_numpy(x).to(device))
+        assert np.array_equal(got.cpu().numpy(), shard_sum_order(x)), rows
+    x = _shard(5000)
+    xt = torch.from_numpy(x).to(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        got = shard_sum.shard_sum2x(xt)
+    side.synchronize()
+    assert np.array_equal(got.cpu().numpy(), shard_sum_order(x))
+    assert np.array_equal(shard_sum.shard_sum2x(xt).cpu().numpy(),
+                          shard_sum_order(x))
+
+
+def test_shard_sum_launches_one_kernel_per_call(device):
+    """After the first call (which zeroes the stream's ticket), each call
+    is the kernel alone: no fill, no copy (_check_one_kernel_per_call)."""
+    x = torch.from_numpy(_shard(16384)).to(device)
+    _check_one_kernel_per_call(lambda: shard_sum.shard_sum2x(x),
+                               shard_sum.launch_counts, "shard_sum",
+                               "shard_sum2x_kernel")
 
 
 def test_shard_sum_wrapper_checks_inputs(device):
@@ -658,6 +705,9 @@ def test_shard_sum_wrapper_checks_inputs(device):
         shard_sum.shard_sum2x(torch.ones((8, 64), device=device))
     with pytest.raises(ValueError):
         shard_sum.shard_sum2x(torch.ones((128, 8), device=device).t())
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        shard_sum.shard_sum2x(torch.ones(9 * 128 + 1, device=device)[1:]
+                              .view(9, 128))
     assert torch.equal(shard_sum.shard_sum2x(torch.ones((0, 128),
                                                         device=device)),
                        torch.zeros((1, 128), device=device))
@@ -944,13 +994,29 @@ def _random_windows(rng):
     return rows, cols, win, offs.astype(np.int32)
 
 
+WINDOW_PROBES = ["dyn_write", "dyn_read", "vmem_dyn_read", "vmem_dyn_rmw"]
+
+
+def _window_key(probe):
+    """The launch count (and kernel name stem) of a WINDOW_PROBES entry."""
+    return "probe_vmem_dyn" if probe.startswith("vmem") else f"probe_{probe}"
+
+
 def _window_call(probe, device, offs, rows=512, cols=256, win=128, seed=0):
-    """(kernel call, plain call, result shape) of one window probe."""
+    """(kernel call, plain call, result shape) of one window probe; for
+    vmem_dyn ``rows`` is the buffer's and one step a window, x seeded."""
     offs = torch.as_tensor(offs, dtype=torch.int32, device=device)
     if probe == "dyn_write":
         return (lambda: probes.probe_dyn_write(offs, rows, cols, win),
                 lambda: probes.probe_dyn_write_ref(offs, rows, cols, win),
                 (rows, cols))
+    if probe.startswith("vmem"):
+        rmw = probe == "vmem_dyn_rmw"
+        x = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(offs.shape[0], win, cols)).astype(np.float32)).to(device)
+        return (lambda: probes.probe_vmem_dyn(offs, x, rows, rmw),
+                lambda: probes.probe_vmem_dyn_ref(offs, x, rows, rmw),
+                tuple(x.shape))
     src = torch.from_numpy(np.random.default_rng(seed).normal(
         size=(rows, cols)).astype(np.float32)).to(device)
     return (lambda: probes.probe_dyn_read(src, offs, win),
@@ -959,14 +1025,15 @@ def _window_call(probe, device, offs, rows=512, cols=256, win=128, seed=0):
 
 
 @pytest.mark.parametrize("poison", ["freed_block", "nan_empty"])
-@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+@pytest.mark.parametrize("probe", WINDOW_PROBES)
 def test_lab_window_probes_write_every_element(device, monkeypatch, probe,
                                                poison):
     """The wrappers allocate with torch.empty, so a kernel that skips an
     element leaves whatever the memory held. Poisoned allocations: a freed
     block of NaNs of the result's size (the caching allocator hands such a
     block back when nothing fits better), or torch.empty itself returning
-    NaNs. Every element outside the windows must still come out 0."""
+    NaNs. Every element outside the windows (vmem_dyn: of the steps whose
+    window does not fit) must still come out 0."""
     kern, plain, shape = _window_call(probe, device, [40, 200, 300, -3, 450])
     if poison == "freed_block":
         torch.cuda.empty_cache()
@@ -985,7 +1052,7 @@ def test_lab_window_probes_write_every_element(device, monkeypatch, probe,
 
 
 @pytest.mark.parametrize("seed", range(4))
-@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+@pytest.mark.parametrize("probe", WINDOW_PROBES)
 def test_lab_window_probes_on_random_windows(device, probe, seed):
     """Random, overlapping and out-of-range windows: kernel and plain
     version exactly equal."""
@@ -1031,13 +1098,13 @@ def _check_one_kernel_per_call(call, counts, key, kernel, calls=10):
     assert all(kernel in name for name in on_device), on_device
 
 
-@pytest.mark.parametrize("probe", ["dyn_write", "dyn_read"])
+@pytest.mark.parametrize("probe", WINDOW_PROBES)
 def test_lab_window_probes_launch_one_kernel_per_call(device, probe):
     """Each call launches one kernel, the probe's, and no fill or copy,
     and adds one to the launch count (counted on the host's launch
     records: _check_one_kernel_per_call)."""
     kern, _, _ = _window_call(probe, device, [40, 200])
-    key = f"probe_{probe}"
+    key = _window_key(probe)
     _check_one_kernel_per_call(kern, probes.launch_counts, key,
                                f"{key}_kernel")
 
@@ -1057,6 +1124,21 @@ def test_lab_window_probes_check_inputs(device):
                               .view(64, 8), offs, 16)
     with pytest.raises(TypeError):
         probes.probe_dyn_write(offs.long(), 64, 8, 16)
+    x = torch.zeros((1, 16, 8), device=device)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        probes.probe_vmem_dyn(offs, torch.zeros((1, 16, 6), device=device),
+                              64, True)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        probes.probe_vmem_dyn(offs, torch.zeros(16 * 8 + 1, device=device)
+                              [1:].view(1, 16, 8), 64, True)
+    with pytest.raises(ValueError, match="steps"):
+        probes.probe_vmem_dyn(
+            torch.zeros(probes.MAX_WINDOWS + 1, dtype=torch.int32,
+                        device=device),
+            x.expand(probes.MAX_WINDOWS + 1, 16, 8).contiguous(), 64, False)
+    with pytest.raises(ValueError, match="one per step"):
+        probes.probe_vmem_dyn(offs, x.expand(2, 16, 8).contiguous(), 64,
+                              False)
 
 
 # -- the seg backward's batches and tensor-core reduction --------------------
