@@ -79,7 +79,13 @@ Phases, in order; any failure exits non-zero:
 5. The orientation path: the same scan and recipe for 6 epochs with the
    ratio loss from epoch 1, the direction loss from epoch 2 and an
    applied wayward cull at epoch 3: kNN launches = direction fires + 1,
-   segpair launches = epochs x views, ``alive`` falls after the cull.
+   segpair launches = epochs x views, ``alive`` falls after the cull. Its
+   view step 24 (the 25th render, epoch 2), where the direction and the
+   ratio branch both fire, runs twice from the same state as in 3b: the
+   projection, direction and ratio gradients, the kNN's indices, and the
+   parameters, Adam moments and absgrads after it bit for bit equal; the
+   doubled step adds one launch of each seg kernel, the row sum and the
+   kNN.
    Then the port's ``cli.fit_edges`` and ``cli.evaluate`` on its output.
 6. The other render paths at full width: the same scan and recipe for
    3 epochs each with (a) ``tile_pair_kernel: true`` (the v4 pair path:
@@ -140,7 +146,9 @@ Phases, in order; any failure exits non-zero:
    per call from the profiler, which must be one kernel (with
    ``--profile_dir``, counted on the host's launch records); the vmem_dyn
    probe's device time over every activity of its calls beside its
-   kernel's, and one device kernel a call on both its runs; the shard-sum
+   kernel's, and one device kernel a call on both its runs; the roll and
+   transpose probes' launch floor (their kernels' device time on the same
+   runs at one 16-byte vector each) beside their device time; the shard-sum
    kernel's and torch.sum's device times, warm and cold, and one device
    kernel a shard-sum call. Every torch.profiler window of the run is in
    phase 8, after the in-process training runs.
@@ -252,6 +260,10 @@ FULL_VIEWS = 50
 # DET_STEP renders (epoch 1) run twice from the same state
 DET_EPOCHS = 2
 DET_STEP = VIEWS + 3
+# phase 5: its view step at ORIENT_DET_STEP renders, the 5th render of the
+# first epoch past start_dir_loss_at_epoch, where the direction and the
+# ratio branch both fire, run twice from the same state
+ORIENT_DET_STEP = (ORIENT_CUTS["start_dir_loss_at_epoch"] + 1) * VIEWS + 4
 # phase 2 (rank_sum) at the seg main path's size: the recipe's pair budget
 # and capacity, ~6.2k valid pairs over the 2500 Gaussians of its seed
 MAIN_PAIRS, MAIN_GAUSSIANS = 6200, 2500
@@ -325,6 +337,7 @@ LAB_SCRIPTS = ("torch_kernel_lab", "torch_cumprod_lab",
                "torch_segpair_probe")
 LOGSUM_TOL = 5e-5
 HOST_CALLS = 2000           # calls per part of phase 8's host-cost split
+FLOOR_PROBES = ("roll", "transpose")   # phase 8: timed at their launch floor
 
 
 def run(cmd) -> str:
@@ -1783,21 +1796,24 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def phase_determinism(tmp: str, scan: str):
-    """Phase 3b: the seg main path for DET_EPOCHS epochs through the CLI,
-    its view step at DET_STEP renders run twice from the same state (every
+@contextlib.contextmanager
+def step_twice(at_step: int):
+    """Within the context, the view step that ``trainer.view_step`` enters
+    at ``state.step == at_step`` runs twice from the same state (every
     parameter, Adam moment and count, absgrads, the step and the
-    generator restored in place between the two): the two runs' gradients
-    (parameters and absgrad sink), and the parameters, both Adam moments
-    and absgrads after the step, bit for bit equal."""
-    from edgegaussians_tpu_torch.train import trainer
-    log(f"== phase 3b: determinism, view step {DET_STEP} of {DET_EPOCHS} "
-        "epochs of the main path run twice from the same state")
-    step = trainer.view_step
+    generator restored in place between the two). Yields the list that
+    gets one dict a run: the projection gradients (parameters and absgrad
+    sink), every gradient handed to Adam (the projection's and, on a fired
+    step, the direction's and the ratio's), the kNN's neighbour indices,
+    and the parameters, both Adam moments and absgrads after the step."""
+    from edgegaussians_tpu_torch.models import losses
+    from edgegaussians_tpu_torch.train import optim, trainer
+    step, adam, neighbours = (trainer.view_step, optim.apply_updates,
+                              losses.update_nearest_neighbors)
     runs = []
 
     def twice(state, *args, **kw):
-        if state.step != DET_STEP:
+        if state.step != at_step:
             return step(state, *args, **kw)
         with torch.no_grad():
             saved = {k: v.clone() for k, v in state_tensors(state).items()}
@@ -1810,17 +1826,36 @@ def phase_determinism(tmp: str, scan: str):
                     for k, v in state_tensors(state).items():
                         v.copy_(saved[k])
                 state.opt.counts = dict(counts)
-                state.step = DET_STEP
+                state.step = at_step
                 state.generator.set_state(gen)
-            got = []
+            got, after, calls = [], {}, {"adam": 0, "knn": 0}
 
             def recorded(*a, **k):
                 got.append(proj_grad(*a, **k))
                 return got[-1]
-            out = step(state, *args, **dict(kw, proj_grad=recorded))
+
+            def recorded_adam(model, grads, *a, **k):
+                after.update({f"adam {calls['adam']} {g}": x.detach().clone()
+                              for g, x in grads.items()})
+                calls["adam"] += 1
+                return adam(model, grads, *a, **k)
+
+            def recorded_knn(*a, **k):
+                idx = neighbours(*a, **k)
+                after[f"knn {calls['knn']}"] = idx.clone()
+                calls["knn"] += 1
+                return idx
+            optim.apply_updates = recorded_adam
+            losses.update_nearest_neighbors = recorded_knn
+            try:
+                out = step(state, *args, **dict(kw, proj_grad=recorded))
+            finally:
+                optim.apply_updates = adam
+                losses.update_nearest_neighbors = neighbours
             _, _, grads, gsink = got[0]
             with torch.no_grad():
-                after = {f"grad {g}": x.clone() for g, x in grads.items()}
+                after.update({f"grad {g}": x.clone()
+                              for g, x in grads.items()})
                 after["absgrad sink"] = gsink.clone()
                 after.update({k: v.clone()
                               for k, v in state_tensors(state).items()})
@@ -1829,24 +1864,47 @@ def phase_determinism(tmp: str, scan: str):
 
     trainer.view_step = twice
     try:
-        _, launches, _, _ = train_cli_run(tmp, scan, DET_EPOCHS,
-                                          "determinism", echo=False)
+        yield runs
     finally:
         trainer.view_step = step
+
+
+def check_twice(runs, at_step: int, need) -> list:
+    """Raise unless the view step ``at_step`` ran twice (``step_twice``),
+    recorded a tensor under each name prefix of ``need``, and gave the
+    same bits in every tensor; returns the tensors' names."""
     if len(runs) != 2:
-        raise AssertionError(f"view step {DET_STEP} ran {len(runs)} times")
+        raise AssertionError(f"view step {at_step} ran {len(runs)} times")
     a, b = runs
-    differ = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
-    if differ:
-        raise AssertionError(f"view step {DET_STEP} run twice from the same "
-                             f"state differs in {differ}")
+    missing = [p for p in need if not any(k.startswith(p) for k in a)]
+    differ = [k for k in a if k not in b or a[k].shape != b[k].shape
+              or not torch.equal(bits(a[k]), bits(b[k]))]
+    if missing or differ or set(a) != set(b):
+        raise AssertionError(f"view step {at_step} run twice from the same "
+                             f"state: nothing recorded for {missing}; "
+                             f"differs in {differ}")
+    return sorted(a)
+
+
+def phase_determinism(tmp: str, scan: str):
+    """Phase 3b: the seg main path for DET_EPOCHS epochs through the CLI,
+    its view step at DET_STEP renders run twice from the same state
+    (``step_twice``): the two runs' gradients (parameters and absgrad
+    sink, and what Adam was handed), and the parameters, both Adam
+    moments and absgrads after the step, bit for bit equal."""
+    log(f"== phase 3b: determinism, view step {DET_STEP} of {DET_EPOCHS} "
+        "epochs of the main path run twice from the same state")
+    with step_twice(DET_STEP) as runs:
+        _, launches, _, _ = train_cli_run(tmp, scan, DET_EPOCHS,
+                                          "determinism", echo=False)
+    names = check_twice(runs, DET_STEP, need=("grad", "adam", "mu", "nu"))
     views = DET_EPOCHS * VIEWS + 1
     expected = no_launches(segpair_fwd=views, segpair_bwd=views,
                            rank_sum=views)
     if launches != expected:
         raise AssertionError(f"launches {launches} of the determinism run, "
                              f"expected {expected}")
-    log(f"determinism ok: {len(a)} tensors bit-equal (gradients, "
+    log(f"determinism ok: {len(names)} tensors bit-equal (gradients, "
         f"parameters, Adam moments, absgrads); launches {launches}")
 
 
@@ -1933,21 +1991,32 @@ def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
         f"ABC_DexiNed on the same scan; cuts: "
         + ", ".join(f"{k}={v}" for k, v in ORIENT_CUTS.items())
         + f", if_cull_wayward=true, cull_wayward_apply=true, "
-        f"cull_wayward_at_epoch=[{WAYWARD_EPOCH}]")
-    text, launches, out_dir, cfg_path = train_cli_run(
-        tmp, scan, ORIENT_EPOCHS, "orient", profile_dir, orient=ORIENT_CUTS,
-        if_cull_wayward=True, cull_wayward_apply=True,
-        cull_wayward_at_epoch=[WAYWARD_EPOCH])
+        f"cull_wayward_at_epoch=[{WAYWARD_EPOCH}]; view step "
+        f"{ORIENT_DET_STEP} (direction and ratio fire) run twice from the "
+        "same state")
+    with step_twice(ORIENT_DET_STEP) as runs:
+        text, launches, out_dir, cfg_path = train_cli_run(
+            tmp, scan, ORIENT_EPOCHS, "orient", profile_dir,
+            orient=ORIENT_CUTS, if_cull_wayward=True,
+            cull_wayward_apply=True, cull_wayward_at_epoch=[WAYWARD_EPOCH])
+    # the doubled step hands Adam the projection's, the direction's and
+    # the ratio's gradients, in that order, and asks for neighbours once
+    names = check_twice(runs, ORIENT_DET_STEP,
+                        need=("grad", "adam 2", "knn 0", "mu", "nu"))
     rows = epoch_lines(text, ORIENT_EPOCHS)
     fires = direction_fires(ORIENT_EPOCHS, VIEWS,
                             ORIENT_CUTS["start_dir_loss_at_epoch"])
-    views = ORIENT_EPOCHS * VIEWS
+    views = ORIENT_EPOCHS * VIEWS + 1
     expected = no_launches(segpair_fwd=views, segpair_bwd=views,
-                           rank_sum=views, knn=fires + 1)
+                           rank_sum=views, knn=fires + 2)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the orientation path, "
                              f"expected {expected} ({fires} direction "
-                             "fires + 1 wayward cull)")
+                             "fires + 1 wayward cull + the doubled fire)")
+    log(f"orientation determinism ok: view step {ORIENT_DET_STEP} run twice "
+        f"bit-equal in {len(names)} tensors (gradients of the projection, "
+        "direction and ratio steps, kNN indices, parameters, Adam moments, "
+        "absgrads)")
     alive = [r[1] for r in rows]
     # an epoch line reports alive before that epoch's density event
     if not alive[WAYWARD_EPOCH + 1] < alive[WAYWARD_EPOCH] == alive[0]:
@@ -2751,13 +2820,29 @@ def probe_host_split(device, traced: bool = False) -> dict:
     return split
 
 
+def probe_floor_call(probe: str, device):
+    """A call of the script's runs of ``probe`` (roll or transpose) on one
+    16-byte vector each: roll [1, 4] by 2 on axis 0 and on axis 1 (two
+    launches, as the script's P1 and P2), transpose [4, 4] (one, as P6).
+    One CTA doing one vector: the kernel's floor of a launch."""
+    from edgegaussians_tpu_torch.lab import probes
+    if probe == "roll":
+        x = torch.arange(4, dtype=torch.float32, device=device).view(1, 4)
+        return lambda: [probes.probe_roll(x, 2, axis) for axis in (0, 1)]
+    x = torch.arange(16, dtype=torch.float32, device=device).view(4, 4)
+    return lambda: probes.probe_transpose(x)
+
+
+
 def phase_lab_probes(device, traced: bool = False):
     """Each probe kernel on the script's runs against its plain version
     and the oracle; per probe the times of its runs, summed, beside the
     bytes bound and the library call's, and its device time from the
     profiler: its kernel's and every activity of its calls' (a key of the
     kernels line beyond the contract's, as are the shard-sum's device
-    times, shard_sum_device)."""
+    times, shard_sum_device). For roll and transpose also the launch
+    floor: the kernel's device time on the same runs at one 16-byte
+    vector each (probe_floor_call; ``floor_device_ms``)."""
     from edgegaussians_tpu_torch.lab import probes
     err, ms, bounds, extra = {}, {}, {}, {}
     per = {p: [0.0, 0.0, 0.0, 0.0, True, 0.0, 0.0, 0.0]
@@ -2808,7 +2893,27 @@ def phase_lab_probes(device, traced: bool = False):
     vmem_dyn_device(device, traced)
     probe_host_split(device, traced)
     extra["shard_sum"] = shard_sum_device(device, traced)
+    for p in FLOOR_PROBES:      # windows of their own, after the checks'
+        key = f"probe_{p}"
+        f_ms = launch_floor_ms(p, device)
+        extra[key]["floor_device_ms"] = f_ms or None
+        log(f"{key}: device {per[p][5]:.5f} ms over the script's runs, "
+            + (f"launch floor {f_ms:.5f} ms (the same runs at one 16-byte "
+               "vector each)" if f_ms > 0 else "launch floor not measured")
+            + f", bound {bounds[key][0]:.5f} ms (profiler)")
     return err, ms, bounds, extra
+
+
+def launch_floor_ms(probe: str, device, windows: int = 3) -> float:
+    """The profiler's device time of probe_floor_call(probe): a window
+    that saw no record of the kernel (CUPTI drops records in bursts) is
+    read again, up to ``windows`` windows; 0.0 if none saw one."""
+    for _ in range(windows):
+        ms = profiled_device(probe_floor_call(probe, device),
+                             f"probe_{probe}_kernel")[0]
+        if ms > 0:
+            return ms
+    return 0.0
 
 
 def vmem_dyn_device(device, traced: bool = False) -> None:

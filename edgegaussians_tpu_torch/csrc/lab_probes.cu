@@ -8,7 +8,18 @@
 // Hopper form of that construct, held to the script's NumPy oracle
 // (edgegaussians_tpu_torch/lab/probes.py):
 //
-//   roll       out = x + 0.5 * roll(x, shift, axis): an index roll;
+//   roll       out = x + 0.5 * roll(x, shift, axis): an index roll. One
+//              16-byte vector of out a thread, 64 threads (2 rows) a CTA,
+//              so 128 CTAs on the script's runs. The wrapper brings the
+//              shift into [0, n_axis), so the source wraps with one compare
+//              and the coordinates come from the grid (no division). Axis
+//              0 moves whole rows: two aligned float4 loads. Axis 1 by
+//              4q + M columns reads the two vectors that the source window
+//              straddles and selects by M, one template instance a residue.
+//              Rows that are no 16-byte multiple, or a pointer off a
+//              16-byte boundary, take the same kernel with one float a
+//              thread. x + 0.5 * y is rounded after each op, as the plain
+//              version rounds (no FMA);
 //   onehot     out[i, :] = sum_j [seg[0, j] == i] * c[j, :], a segmented
 //              sum, owner-computes (no one-hot and no product is built).
 //              Each CTA owns a block of output rows (and of 16-byte column
@@ -41,8 +52,13 @@
 //              of output rows, maps each to its source row (or none) once,
 //              and copies with 16-byte vector loads and stores; one launch
 //              writes every element;
-//   transpose  through a 32 x 33 shared tile (the pad keeps the column
-//              reads free of bank conflicts);
+//   transpose  tiles of 32 rows x 16 columns of x, 128 threads a CTA
+//              (64 CTAs on the script's [256, 128]): each thread loads one
+//              16-byte row segment into shared memory and stores one
+//              16-byte segment of an out row; an XOR swizzle of the tile's
+//              16-byte chunks keeps both phases free of bank conflicts.
+//              Rows or columns that are no multiple of 4, or a pointer off
+//              a 16-byte boundary, move the same four floats one by one;
 //   vmem_dyn   a scratch buffer [buf_rows, cols], zero at step 0, kept
 //              across the steps: step s reads (or, with rmw, adds x[s]
 //              into) the window at row offs[s]. The TPU keeps the buffer
@@ -83,24 +99,80 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int ONEHOT_ROWS = 16;       // onehot: most output rows a CTA owns
 constexpr int ONEHOT_VEC_PER_THREAD = 2;
 constexpr int ONEHOT_LOADS = 8;       // source rows loaded side by side
+constexpr int ROLL_ROWS = 2;          // roll: rows a CTA, 32 elements each
+constexpr int TRANSPOSE_ROWS = 32;    // transpose: a tile's rows of x
+constexpr int TRANSPOSE_COLS = 16;    // and columns (128 threads)
+constexpr int MAX_GRID_Y = 65535;
 
-__global__ void __launch_bounds__(THREADS)
-probe_roll_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  int rows, int cols, int shift, int axis) {
-  const int n = rows * cols;
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += gridDim.x * THREADS) {
-    const int r = i / cols;
-    const int c = i % cols;
-    int src;
-    if (axis == 0) {
-      const int rr = ((r - shift) % rows + rows) % rows;
-      src = rr * cols + c;
+__device__ __forceinline__ int wrap_low(int i, int n) {
+  return i < 0 ? i + n : i;   // i in [-n, n)
+}
+
+// x + 0.5 * y rounded after each op, as the plain version's two ops round
+// (a contracted FMA would round once)
+__device__ __forceinline__ float add_half(float x, float y) {
+  return __fadd_rn(x, __fmul_rn(0.5f, y));
+}
+__device__ __forceinline__ float4 add_half(const float4& x, const float4& y) {
+  return make_float4(add_half(x.x, y.x), add_half(x.y, y.y),
+                     add_half(x.z, y.z), add_half(x.w, y.w));
+}
+
+// roll along axis 1 by 4q + M columns: out vector c of a row takes the
+// source columns 4c - 4q - M .. + 3, which straddle vectors c - q - 1
+// (its last M floats, "lo") and c - q (its first 4 - M, "hi"), wrapped
+// at the row's end
+template <int M>
+__device__ __forceinline__ float4 window(const float4* __restrict__ row,
+                                         int c, int q, int cols_v) {
+  const float4 hi = __ldg(row + wrap_low(c - q, cols_v));
+  if constexpr (M == 0) {
+    return hi;
+  } else {
+    const float4 lo = __ldg(row + wrap_low(c - q - 1, cols_v));
+    if constexpr (M == 1) {
+      return make_float4(lo.w, hi.x, hi.y, hi.z);
+    } else if constexpr (M == 2) {
+      return make_float4(lo.z, lo.w, hi.x, hi.y);
     } else {
-      const int cc = ((c - shift) % cols + cols) % cols;
-      src = r * cols + cc;
+      static_assert(M == 3, "M is the shift's residue mod 4");
+      return make_float4(lo.y, lo.z, lo.w, hi.x);
     }
-    out[i] = x[i] + 0.5f * x[src];
+  }
+}
+// the scalar path: one float, the shift in columns
+template <int M>
+__device__ __forceinline__ float window(const float* __restrict__ row, int c,
+                                        int s, int cols) {
+  return __ldg(row + wrap_low(c - s, cols));
+}
+
+// block (32, ROLL_ROWS), grid (cdiv(cols_v, 32), <= cdiv(rows, ROLL_ROWS)):
+// thread (tx, ty) of CTA (bx, by) owns element bx * 32 + tx of row
+// by * ROLL_ROWS + ty of out [rows, cols_v], and the rows a grid's height
+// further on. An element is a 16-byte vector (V = float4) or, where rows
+// are no 16-byte multiple or a pointer is off a 16-byte boundary, a float.
+// `shift` is in [0, rows) rows (axis 0) or in [0, cols_v) elements (axis 1;
+// float4: whole vectors, M the columns beyond them): the wrapper brings
+// the shift into range, so the coordinates come from the grid and the
+// source wraps with one compare; nothing divides.
+template <typename V, int AXIS, int M>
+__global__ void __launch_bounds__(32 * ROLL_ROWS)
+probe_roll_kernel(const V* __restrict__ x, V* __restrict__ out, int rows,
+                  int cols_v, int shift) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  if (c >= cols_v) return;
+  for (int r = blockIdx.y * ROLL_ROWS + threadIdx.y; r < rows;
+       r += gridDim.y * ROLL_ROWS) {
+    const V* row = x + static_cast<size_t>(r) * cols_v;
+    V y;
+    if constexpr (AXIS == 0) {   // whole rows move: an aligned load
+      y = __ldg(x + static_cast<size_t>(wrap_low(r - shift, rows)) * cols_v +
+                c);
+    } else {
+      y = window<M>(row, c, shift, cols_v);
+    }
+    out[static_cast<size_t>(r) * cols_v + c] = add_half(__ldg(row + c), y);
   }
 }
 
@@ -273,25 +345,81 @@ probe_dyn_read_kernel(const int* __restrict__ offs,
   }
 }
 
-// block (32, 8), grid (cdiv(cols, 32), cdiv(rows, 32)): out [cols, rows]
-__global__ void probe_transpose_kernel(const float* __restrict__ x,
-                                       float* __restrict__ out, int rows,
-                                       int cols) {
-  __shared__ float tile[32][33];
-  const int c0 = blockIdx.x * 32;
-  const int r0 = blockIdx.y * 32;
-  for (int j = threadIdx.y; j < 32; j += 8) {
-    const int r = r0 + j;
-    const int c = c0 + threadIdx.x;
-    if (r < rows && c < cols)
-      tile[j][threadIdx.x] = x[static_cast<size_t>(r) * cols + c];
-  }
-  __syncthreads();
-  for (int j = threadIdx.y; j < 32; j += 8) {
-    const int c = c0 + j;
-    const int r = r0 + threadIdx.x;
-    if (c < cols && r < rows)
-      out[static_cast<size_t>(c) * rows + r] = tile[threadIdx.x][j];
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n / 2);
+}
+
+// The chunk of the shared tile where tile row r's 16-byte chunk g (g = r *
+// TC / 4 + column / 4, row-major) lives: g with its low 3 bits (a 128-byte
+// line of 8 chunks, the 32 banks) XORed by r's group of 4 rows, spread
+// over the 8 chunks. The loads' 8-thread phases store 8 neighbouring
+// chunks of rows of one group (a permutation of one line); a warp of the
+// stores reads one float of each of TR / 4 row groups at 32 / TR chunk
+// columns, which the XOR sends to 32 distinct banks.
+template <int TR>
+__device__ __forceinline__ int swizzle(int g, int r) {
+  return g ^ (((r >> 2) * (32 / TR)) & 7);
+}
+
+// out [cols, rows] = x [rows, cols]^T. grid (cdiv(cols, TC), <=
+// cdiv(rows, TR)), TR * TC / 4 threads: CTA (bx, by) moves the tile of x
+// rows [by * TR, + TR) and columns [bx * TC, + TC), and the tiles a grid's
+// height further on. Each thread loads one 16-byte row segment of x (tile
+// row i, chunk j) into the swizzled tile and, after one barrier, stores
+// one 16-byte segment of an out row (out row c of the tile: four floats
+// of one tile column, chunk k), the k fastest across a warp so that its
+// stores fill whole segments of out rows. VEC False (rows or columns no
+// multiple of 4, or a pointer off a 16-byte boundary) moves the same four
+// floats one by one, each bounded by the array's edge.
+template <int TR, int TC, bool VEC>
+__global__ void __launch_bounds__(TR * TC / 4)
+probe_transpose_kernel(const float* __restrict__ x, float* __restrict__ out,
+                       int rows, int cols) {
+  constexpr int CV = TC / 4, RV = TR / 4;   // chunks of a tile row, column
+  constexpr int CV_BITS = log2_of(CV), RV_BITS = log2_of(RV);
+  static_assert((TR == 16 || TR == 32) && (TC == 16 || TC == 32),
+                "the swizzle spreads 16 or 32 rows over 8 chunks");
+  __shared__ float4 tile[TR * CV];
+  const float* tf = reinterpret_cast<const float*>(tile);
+  const int t = threadIdx.x;
+  const int i = t >> CV_BITS, j = t & (CV - 1);   // load: row, chunk
+  const int c = t >> RV_BITS, k = t & (RV - 1);   // store: row, chunk
+  const int col = blockIdx.x * TC + 4 * j;   // x column of the load
+  const int oc = blockIdx.x * TC + c;        // out row of the store
+  for (int r0 = blockIdx.y * TR; r0 < rows; r0 += gridDim.y * TR) {
+    const int r = r0 + i;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < rows) {
+      const float* src = x + static_cast<size_t>(r) * cols + col;
+      if constexpr (VEC) {
+        if (col < cols) v = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        if (col < cols) v.x = __ldg(src);
+        if (col + 1 < cols) v.y = __ldg(src + 1);
+        if (col + 2 < cols) v.z = __ldg(src + 2);
+        if (col + 3 < cols) v.w = __ldg(src + 3);
+      }
+    }
+    tile[swizzle<TR>(t, i)] = v;   // chunk t is row i's chunk j
+    __syncthreads();
+    const int orow = r0 + 4 * k;   // out column of the store's first float
+    if (oc < cols && orow < rows) {
+      float w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int tr = 4 * k + u;
+        w[u] = tf[4 * swizzle<TR>(tr * CV + (c >> 2), tr) + (c & 3)];
+      }
+      float* dst = out + static_cast<size_t>(oc) * rows + orow;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (orow + u < rows) dst[u] = w[u];
+      }
+    }
+    __syncthreads();   // the tile is read before the next one is stored
   }
 }
 
@@ -335,6 +463,9 @@ probe_vmem_dyn_kernel(const int* __restrict__ offs,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// a grid's height: the kernels loop over the rows beyond it
+int grid_y(int n) { return n < MAX_GRID_Y ? n : MAX_GRID_Y; }
+
 // rows of cols4 16-byte vectors that one CTA of dyn_write / dyn_read owns
 int rows_per_cta(int cols4) {
   return cols4 >= VEC_PER_CTA ? 1 : VEC_PER_CTA / cols4;
@@ -346,13 +477,48 @@ extern "C" {
 
 // Each entry launches on `stream` and returns its first CUDA error (0 = ok).
 
+// shift in [0, rows) (axis 0) or [0, cols) (axis 1); vec: cols a multiple
+// of 4 and x and out 16-byte aligned (the wrapper brings the shift into
+// range and decides vec)
 int probe_roll(const float* x, float* out, int rows, int cols, int shift,
-               int axis, void* stream) {
-  const int blocks = cdiv(rows * cols, THREADS);
-  if (blocks > 0) {
-    probe_roll_kernel<<<blocks, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        x, out, rows, cols, shift, axis);
+               int axis, int vec, void* stream) {
+  if (rows > 0 && cols > 0) {
+    const int cols_v = vec ? cols / 4 : cols;
+    const dim3 grid(cdiv(cols_v, 32), grid_y(cdiv(rows, ROLL_ROWS)));
+    const dim3 block(32, ROLL_ROWS);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    if (!vec) {
+      if (axis == 0)
+        probe_roll_kernel<float, 0, 0><<<grid, block, 0, st>>>(
+            x, out, rows, cols_v, shift);
+      else
+        probe_roll_kernel<float, 1, 0><<<grid, block, 0, st>>>(
+            x, out, rows, cols_v, shift);
+    } else if (axis == 0) {
+      probe_roll_kernel<float4, 0, 0><<<grid, block, 0, st>>>(
+          x4, out4, rows, cols_v, shift);
+    } else {
+      const int q = shift / 4;   // whole vectors, then the residue
+      switch (shift % 4) {
+        case 0:
+          probe_roll_kernel<float4, 1, 0><<<grid, block, 0, st>>>(
+              x4, out4, rows, cols_v, q);
+          break;
+        case 1:
+          probe_roll_kernel<float4, 1, 1><<<grid, block, 0, st>>>(
+              x4, out4, rows, cols_v, q);
+          break;
+        case 2:
+          probe_roll_kernel<float4, 1, 2><<<grid, block, 0, st>>>(
+              x4, out4, rows, cols_v, q);
+          break;
+        default:
+          probe_roll_kernel<float4, 1, 3><<<grid, block, 0, st>>>(
+              x4, out4, rows, cols_v, q);
+      }
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -410,13 +576,20 @@ int probe_dyn_read(const int* offs, const float* src, float* out, int n_win,
   return static_cast<int>(cudaGetLastError());
 }
 
-int probe_transpose(const float* x, float* out, int rows, int cols,
+// vec: rows and cols multiples of 4 and x and out 16-byte aligned (the
+// wrapper decides)
+int probe_transpose(const float* x, float* out, int rows, int cols, int vec,
                     void* stream) {
+  constexpr int TR = TRANSPOSE_ROWS, TC = TRANSPOSE_COLS;
   if (rows > 0 && cols > 0) {
-    probe_transpose_kernel<<<dim3(cdiv(cols, 32), cdiv(rows, 32)),
-                             dim3(32, 8), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        x, out, rows, cols);
+    const dim3 grid(cdiv(cols, TC), grid_y(cdiv(rows, TR)));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec)
+      probe_transpose_kernel<TR, TC, true><<<grid, TR * TC / 4, 0, st>>>(
+          x, out, rows, cols);
+    else
+      probe_transpose_kernel<TR, TC, false><<<grid, TR * TC / 4, 0, st>>>(
+          x, out, rows, cols);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,9 @@ On the TPU each probe asked whether Mosaic lowers one construct that the
 segmented compositor wanted; here each is that construct's Hopper form
 (``csrc/lab_probes.cu``), held to the script's NumPy oracle:
 
-- :func:`probe_roll`: ``x + 0.5 * roll(x, shift, axis)`` (:51);
+- :func:`probe_roll`: ``x + 0.5 * roll(x, shift, axis)`` (:51), one
+  16-byte vector of the result a thread, the shift brought into
+  ``[0, n_axis)`` on the host (:func:`roll_plan`);
 - :func:`probe_onehot`: a one-hot [J, J] from segment ids (row 0 of
   ``seg [8, J]``) times ``c [J, cols]``: a segmented sum (:66). The kernel
   computes it owner-first, as the sum over the rows of ``c`` whose id
@@ -18,7 +20,9 @@ segmented compositor wanted; here each is that construct's Hopper form
 - :func:`probe_dyn_read`: ``2 * src[offs[b] : offs[b] + win]`` for each
   window, stacked, zero where a window does not fit (:128); one launch
   writes every element;
-- :func:`probe_transpose`: a transpose (:163);
+- :func:`probe_transpose`: a transpose (:163) through swizzled shared
+  tiles, one 16-byte load and one 16-byte store a thread
+  (:func:`transpose_vec`);
 - :func:`probe_vmem_dyn`: a scratch buffer ``[buf_rows, cols]`` kept
   across the steps: step s reads (``rmw`` False: ``buf * 0 + 2 * x[s]``)
   or adds ``x[s]`` into (``rmw`` True) the window at row ``offs[s]``
@@ -63,11 +67,11 @@ MAX_WINDOWS = 8192
 # each entry's pointers, then its ints, then the stream
 _V, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
-    "probe_roll": (_V,) * 2 + (_I,) * 4 + (_V,),
+    "probe_roll": (_V,) * 2 + (_I,) * 5 + (_V,),
     "probe_onehot": (_V,) * 3 + (_I,) * 2 + (_V,),
     "probe_dyn_write": (_V,) * 2 + (_I,) * 4 + (_V,),
     "probe_dyn_read": (_V,) * 3 + (_I,) * 4 + (_V,),
-    "probe_transpose": (_V,) * 2 + (_I,) * 2 + (_V,),
+    "probe_transpose": (_V,) * 2 + (_I,) * 3 + (_V,),
     "probe_vmem_dyn": (_V,) * 3 + (_I,) * 5 + (_V,),
 }
 
@@ -124,18 +128,30 @@ def _fits(off: int, win: int, rows: int) -> bool:
 
 # -- roll ------------------------------------------------------------------
 
+def roll_plan(shape, shift: int, axis: int, aligned: bool) -> tuple:
+    """(16-byte vectors, the shift in [0, n_axis)) of the roll kernel's
+    launch on an array of ``shape``: vectors where rows are 16-byte
+    multiples and ``aligned`` (both pointers on a 16-byte boundary), else
+    one float a thread. An empty axis keeps the shift 0."""
+    n = shape[axis]
+    return shape[1] % 4 == 0 and aligned, shift % n if n else 0
+
+
 def probe_roll(x: torch.Tensor, shift: int = 2, axis: int = 0
                ) -> torch.Tensor:
-    """``x + 0.5 * roll(x, shift, axis)`` for a 2-D f32 ``x``."""
+    """``x + 0.5 * roll(x, shift, axis)`` for a 2-D f32 ``x``; any integer
+    shift."""
     if not _on_cuda(x, "roll"):
         return probe_roll_ref(x, shift, axis)
     _check_2d("x", x)
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     out = torch.empty_like(x)
+    vec, s = roll_plan(x.shape, shift, axis,
+                       x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     _launch("probe_roll",
-            (x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], shift,
-             axis, _build.stream(x.device)))
+            (x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], s, axis,
+             int(vec), _build.stream(x.device)))
     return out
 
 
@@ -237,6 +253,14 @@ def probe_dyn_read_ref(src: torch.Tensor, offs: torch.Tensor,
 
 # -- transpose -------------------------------------------------------------
 
+def transpose_vec(shape, aligned: bool) -> bool:
+    """Whether the transpose kernel moves 16-byte vectors on an array of
+    ``shape``: rows and columns multiples of 4 and ``aligned`` (both
+    pointers on a 16-byte boundary); else the same four floats one by
+    one."""
+    return shape[0] % 4 == 0 and shape[1] % 4 == 0 and aligned
+
+
 def probe_transpose(x: torch.Tensor) -> torch.Tensor:
     """x [rows, cols] f32 -> [cols, rows]."""
     if not _on_cuda(x, "transpose"):
@@ -244,8 +268,10 @@ def probe_transpose(x: torch.Tensor) -> torch.Tensor:
     _check_2d("x", x)
     out = torch.empty((x.shape[1], x.shape[0]), dtype=torch.float32,
                       device=x.device)
+    vec = transpose_vec(x.shape, x.data_ptr() % 16 == 0
+                        and out.data_ptr() % 16 == 0)
     _launch("probe_transpose",
-            (x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            (x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], int(vec),
              _build.stream(x.device)))
     return out
 

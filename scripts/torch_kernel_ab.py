@@ -31,6 +31,10 @@ repository's ``chip_smoke.py`` helpers:
   131072-row cloud (k = 6);
 - the onehot probe on the script's run beside ``onehot @ c`` (both also
   by their device time from torch.profiler);
+- the roll probe on the script's runs P1 and P2 and the transpose probe
+  on P6 (events, device time of queued calls and from torch.profiler,
+  the launch floor: the profiler's device time of the same runs at one
+  16-byte vector each, and digests; PR 16 on);
 - the vmem_dyn probe on the script's runs P7a and P7b, summed, and the
   shard-sum kernel on chip_smoke.py's phase-7 shard, warm (the
   same shard, in L2) and cold (chip_smoke.py's COLD_SHARDS shards
@@ -54,7 +58,8 @@ call does not pace. Each turn prints one JSON line with its times and the
 compiler's register and shared-memory report of the eight sources; the
 run ends with a table of the turns and the card's name and power limit.
 ``--probes_only`` times the probes' part alone (a kernel variant's quick
-turn).
+turn; ``scripts/torch_probe_variants.py`` writes the roll and transpose
+variants this repository measured).
 A tree is a checkout of the repository, e.g. the parent commit unpacked
 with ``git archive`` into a git-ignored directory, or a directory holding
 a copy of ``edgegaussians_tpu_torch/`` (a variant of a kernel). Needs a
@@ -78,9 +83,9 @@ DENSE_CHAIN_SLOTS = (64, 640)
 
 
 def turn(root: str, probes_only: bool = False) -> dict:
-    """Build and time ``root``'s kernels (``probes_only``: the vmem_dyn
-    and shard-sum part alone); this repository's chip_smoke.py makes the
-    inputs."""
+    """Build and time ``root``'s kernels (``probes_only``: the roll,
+    transpose, vmem_dyn and shard-sum part alone); this repository's
+    chip_smoke.py makes the inputs."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -162,33 +167,52 @@ def ptxas(name: str) -> list:
             if "registers" in ln or "Compiling" in ln or "spill" in ln]
 
 
-def probe_turn(cs, device) -> dict:
-    """The vmem_dyn probe on the script's runs P7a and P7b (both runs a
-    call, as chip_smoke.py's phase 8 sums them) and the shard-sum kernel
-    on phase 7's shard, warm and cold: events, device time of queued calls
-    and of the profiler, and digests."""
-    import torch
+def probe_runs(probe: str, device):
+    """A call of the script's runs of ``probe`` (all of them a call, as
+    chip_smoke.py's phase 8 sums them); returns their outputs."""
     from edgegaussians_tpu_torch.lab import probes
-    from edgegaussians_tpu_torch.ops import shard_sum
     runs = [(case, probes.case_tensors(name, device))
-            for name, case in probes.CASES.items()
-            if case.probe == "vmem_dyn"]
+            for name, case in probes.CASES.items() if case.probe == probe]
+    kern = probes.KERNELS[probe][0]
+    return lambda: [case.call(kern, t) for case, t in runs]
 
-    def vmem():
-        return [case.call(probes.probe_vmem_dyn, t) for case, t in runs]
+
+def probe_turn(cs, device) -> dict:
+    """The roll probe on the script's runs P1 and P2, the transpose probe
+    on P6, the vmem_dyn probe on P7a and P7b (each probe's runs a call),
+    and the shard-sum kernel on phase 7's shard, warm and cold: events,
+    device time of queued calls and of the profiler, and digests; for
+    roll and transpose also the launch floor, the profiler's device time
+    of the same runs at one 16-byte vector each (chip_smoke.py's
+    probe_floor_call)."""
+    import torch
+    from edgegaussians_tpu_torch.ops import shard_sum
+    calls = {p: probe_runs(p, device)
+             for p in ("roll", "transpose", "vmem_dyn")}
+    vmem = calls["vmem_dyn"]
     xs = cs.shards(device, cs.COLD_SHARDS)
     kern = shard_sum.shard_sum2x
-    out = {"probe_vmem_dyn_ms": cs.cuda_ms(vmem, 200),
-           "probe_vmem_dyn_device_ms": cs.queued_ms(vmem, 50),
-           "probe_vmem_dyn_digest": digest(vmem()),
-           "shard_sum_ms": cs.cuda_ms(lambda: kern(xs[0]), 200),
-           "shard_sum_device_ms": cs.queued_ms(lambda: kern(xs[0]), 50),
-           "shard_sum_cold_ms": cs.cuda_ms(cs.cycling(kern, xs), 200),
-           "shard_sum_cold_device_ms": cs.queued_ms(cs.cycling(kern, xs),
-                                                    50),
-           "shard_sum_digest": digest(kern(x) for x in xs)}
+    out = {}
+    for p in cs.FLOOR_PROBES:
+        out[f"probe_{p}_ms"] = cs.cuda_ms(calls[p], 200)
+        out[f"probe_{p}_device_ms"] = cs.queued_ms(calls[p], 50)
+        out[f"probe_{p}_digest"] = digest(calls[p]())
+    out.update({
+        "probe_vmem_dyn_ms": cs.cuda_ms(vmem, 200),
+        "probe_vmem_dyn_device_ms": cs.queued_ms(vmem, 50),
+        "probe_vmem_dyn_digest": digest(vmem()),
+        "shard_sum_ms": cs.cuda_ms(lambda: kern(xs[0]), 200),
+        "shard_sum_device_ms": cs.queued_ms(lambda: kern(xs[0]), 50),
+        "shard_sum_cold_ms": cs.cuda_ms(cs.cycling(kern, xs), 200),
+        "shard_sum_cold_device_ms": cs.queued_ms(cs.cycling(kern, xs), 50),
+        "shard_sum_digest": digest(kern(x) for x in xs)})
     # the profiler's windows: the kernel's device time, and every
     # activity of the call
+    for p in cs.FLOOR_PROBES:
+        name = f"probe_{p}_kernel"
+        out[f"probe_{p}_profiler_device_ms"] = cs.profiled_device(
+            calls[p], name)[0]
+        out[f"probe_{p}_floor_device_ms"] = cs.launch_floor_ms(p, device)
     out["probe_vmem_dyn_profiler_device_ms"] = cs.profiled_device(
         vmem, "probe_vmem_dyn_kernel")[0]
     out["probe_vmem_dyn_call_device_ms"], out[
@@ -418,7 +442,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", nargs="+", help="trees, timed in this order")
     ap.add_argument("--probes_only", action="store_true",
-                    help="time the vmem_dyn and shard-sum part alone")
+                    help="time the roll, transpose, vmem_dyn and shard-sum "
+                    "part alone")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:

@@ -43,7 +43,10 @@ order than the plain cumsum), dfeats 1e-4 of the plain version's max-abs;
 the probes exactly equal to their plain versions and oracles (the one-hot
 sum within 1e-5); the one-launch dyn_write / dyn_read / vmem_dyn (read
 and rmw) kernels exactly equal on random windows and over poisoned
-allocations, one device kernel per call; the owner-computes onehot
+allocations, one device kernel per call; the roll and transpose
+kernels bit for bit their plain versions on random shapes and shifts,
+aligned and misaligned, on two launches, over poisoned allocations, one
+device kernel a call; the owner-computes onehot
 kernel bit for bit the in-order sum of its rows (the one-hot product
 adds exact zeros beside the same terms) on random ids, one device kernel
 per call. The seg forward: image atol
@@ -995,16 +998,36 @@ def _random_windows(rng):
 
 
 WINDOW_PROBES = ["dyn_write", "dyn_read", "vmem_dyn_read", "vmem_dyn_rmw"]
+# the roll and transpose kernels on 16-byte rows (vectors) and on rows
+# that are not (the scalar path): (shape, shift, axis) of the roll
+ELEMENT_PROBES = {"roll_vec_axis0": ((128, 256), 2, 0),
+                  "roll_vec_axis1": ((256, 128), 2, 1),
+                  "roll_odd_axis1": ((37, 131), -5, 1),
+                  "transpose_vec": ((256, 128), None, None),
+                  "transpose_odd": ((257, 131), None, None)}
 
 
 def _window_key(probe):
-    """The launch count (and kernel name stem) of a WINDOW_PROBES entry."""
+    """The launch count (and kernel name stem) of a WINDOW_PROBES or
+    ELEMENT_PROBES entry."""
+    if probe in ELEMENT_PROBES:
+        return f"probe_{probe.split('_')[0]}"
     return "probe_vmem_dyn" if probe.startswith("vmem") else f"probe_{probe}"
 
 
 def _window_call(probe, device, offs, rows=512, cols=256, win=128, seed=0):
     """(kernel call, plain call, result shape) of one window probe; for
-    vmem_dyn ``rows`` is the buffer's and one step a window, x seeded."""
+    vmem_dyn ``rows`` is the buffer's and one step a window, x seeded. An
+    ELEMENT_PROBES entry takes its own seeded x and ignores the rest."""
+    if probe in ELEMENT_PROBES:
+        shape, shift, axis = ELEMENT_PROBES[probe]
+        x = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=shape).astype(np.float32)).to(device)
+        if probe.startswith("roll"):
+            return (lambda: probes.probe_roll(x, shift, axis),
+                    lambda: probes.probe_roll_ref(x, shift, axis), shape)
+        return (lambda: probes.probe_transpose(x),
+                lambda: probes.probe_transpose_ref(x), shape[::-1])
     offs = torch.as_tensor(offs, dtype=torch.int32, device=device)
     if probe == "dyn_write":
         return (lambda: probes.probe_dyn_write(offs, rows, cols, win),
@@ -1025,7 +1048,7 @@ def _window_call(probe, device, offs, rows=512, cols=256, win=128, seed=0):
 
 
 @pytest.mark.parametrize("poison", ["freed_block", "nan_empty"])
-@pytest.mark.parametrize("probe", WINDOW_PROBES)
+@pytest.mark.parametrize("probe", WINDOW_PROBES + list(ELEMENT_PROBES))
 def test_lab_window_probes_write_every_element(device, monkeypatch, probe,
                                                poison):
     """The wrappers allocate with torch.empty, so a kernel that skips an
@@ -1033,7 +1056,8 @@ def test_lab_window_probes_write_every_element(device, monkeypatch, probe,
     block of NaNs of the result's size (the caching allocator hands such a
     block back when nothing fits better), or torch.empty itself returning
     NaNs. Every element outside the windows (vmem_dyn: of the steps whose
-    window does not fit) must still come out 0."""
+    window does not fit) must still come out 0; the roll and transpose
+    results (ELEMENT_PROBES) must equal the plain version's, NaN-free."""
     kern, plain, shape = _window_call(probe, device, [40, 200, 300, -3, 450])
     if poison == "freed_block":
         torch.cuda.empty_cache()
@@ -1048,7 +1072,8 @@ def test_lab_window_probes_write_every_element(device, monkeypatch, probe,
     torch.cuda.synchronize()
     ref = plain()
     assert torch.equal(out, ref)
-    assert (out[ref == 0] == 0).all() and (ref == 0).any()
+    if probe not in ELEMENT_PROBES:
+        assert (out[ref == 0] == 0).all() and (ref == 0).any()
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -1098,7 +1123,7 @@ def _check_one_kernel_per_call(call, counts, key, kernel, calls=10):
     assert all(kernel in name for name in on_device), on_device
 
 
-@pytest.mark.parametrize("probe", WINDOW_PROBES)
+@pytest.mark.parametrize("probe", WINDOW_PROBES + list(ELEMENT_PROBES))
 def test_lab_window_probes_launch_one_kernel_per_call(device, probe):
     """Each call launches one kernel, the probe's, and no fill or copy,
     and adds one to the launch count (counted on the host's launch
@@ -1107,6 +1132,64 @@ def test_lab_window_probes_launch_one_kernel_per_call(device, probe):
     key = _window_key(probe)
     _check_one_kernel_per_call(kern, probes.launch_counts, key,
                                f"{key}_kernel")
+
+
+def _misaligned(x):
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lab_roll_and_transpose_on_random_shapes(device, seed):
+    """Random shapes (odd widths, one row or column, 16-byte rows) and
+    shifts (negative, past the axis): roll and transpose bit for bit the
+    plain version, aligned and misaligned (the scalar path), and two
+    launches bit-equal."""
+    rng = np.random.default_rng(700 + seed)
+    for i in range(30):
+        rows = int(rng.choice([1, 2, 3, 4, 7, 64, 129, 300]))
+        cols = int(rng.choice([1, 3, 4, 5, 8, 36, 131, 256, 1028]))
+        x = torch.from_numpy(rng.normal(size=(rows, cols)).astype(
+            np.float32)).to(device)
+        shift = int(rng.integers(-3 * max(rows, cols), 3 * max(rows, cols)))
+        for xin in (x, _misaligned(x)):
+            for axis in (0, 1):
+                got = probes.probe_roll(xin, shift, axis)
+                again = probes.probe_roll(xin, shift, axis)
+                torch.cuda.synchronize()
+                ref = probes.probe_roll_ref(x, shift, axis)
+                assert torch.equal(got.view(torch.int32),
+                                   ref.view(torch.int32)), (
+                    rows, cols, shift, axis, xin.data_ptr() % 16)
+                assert torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))
+            got = probes.probe_transpose(xin)
+            again = probes.probe_transpose(xin)
+            torch.cuda.synchronize()
+            assert torch.equal(got, x.t().contiguous()), (rows, cols)
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_lab_roll_and_transpose_empty_and_tall(device):
+    """Empty arrays (no kernel runs; the call still counts), and arrays
+    taller than a grid's height (the kernels loop over the rows beyond
+    it)."""
+    for shape in ((0, 8), (5, 0)):
+        x = torch.zeros(shape, device=device)
+        assert probes.probe_roll(x, 3, 0).shape == shape
+        assert probes.probe_transpose(x).shape == shape[::-1]
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(70000 * 32 + 5, 4)).astype(np.float32)).to(device)
+    for axis, shift in ((0, 12345), (1, 3)):
+        assert torch.equal(probes.probe_roll(x, shift, axis),
+                           probes.probe_roll_ref(x, shift, axis))
+    assert torch.equal(probes.probe_transpose(x), x.t().contiguous())
+    y = x[:70000 * 32].contiguous()
+    assert torch.equal(probes.probe_transpose(y), y.t().contiguous())
 
 
 def test_lab_window_probes_check_inputs(device):

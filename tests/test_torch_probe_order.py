@@ -20,6 +20,22 @@
   is held to it bit for bit on the card (tests/test_torch_kernels.py).
   The constants it reads from ``ops/shard_sum.py`` are the kernel
   source's.
+- ``roll_model``, a NumPy model of the roll kernel's index map: the
+  wrapper's plan (``probes.roll_plan``: 16-byte vectors where rows are
+  16-byte multiples and the pointers aligned, the shift brought into
+  ``[0, n_axis)`` on the host), one element of out a thread, the source
+  wrapped with one compare, and for axis 1 by ``4q + M`` columns the two
+  vectors the window straddles, selected as the kernel's ``window`` does
+  (its ``make_float4`` lanes read from ``csrc/lab_probes.cu``). Bit for bit
+  ``probe_roll_ref`` and ``np.roll`` on shifts -5..9, both axes, widths 1-9
+  and 128-260, aligned or not, and on the script's runs P1 / P2.
+- ``transpose_model``, a NumPy model of the tiled transpose: its tiles
+  (the source's ``TRANSPOSE_ROWS`` x ``TRANSPOSE_COLS``), each thread's
+  16-byte load into the swizzled tile and 16-byte store of an out row
+  segment, the scalar path with its edges; ``x.T`` exactly on shapes from
+  [1, 1] to [257, 131] and on P6, every element written once. The
+  swizzle's two phases are free of bank conflicts for each tile shape the
+  kernel's ``static_assert`` admits.
 """
 
 import re
@@ -150,3 +166,217 @@ def test_shard_sum_constants_are_the_kernel_source():
     r = shard_sum.ROWS_PER_CTA
     assert [shard_sum.blocks(n) for n in (0, 1, r, r + 1, 128 * r)] == \
         [1, 1, 1, 2, 128]
+
+
+# -- the roll kernel's index map --------------------------------------------
+
+_SRC = _build.CSRC / "lab_probes.cu"
+
+
+def _constants():
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", _SRC.read_text())}
+
+
+def _roll_selects():
+    """{M: [("lo" | "hi", lane)] * 4}: the lanes of each ``make_float4``
+    of the kernel's axis-1 ``window``, M = 1, 2, 3 in source order."""
+    src = _SRC.read_text()
+    body = src[src.index("float4 window("):src.index("float window(")]
+    picks = re.findall(r"make_float4\(([^)]*)\)", body)
+    assert len(picks) == 3, picks
+    return {m: [(a.split(".")[0].strip(), "xyzw".index(a.split(".")[1]
+                                                      .strip()))
+                for a in args.split(",")]
+            for m, args in zip((1, 2, 3), picks)}
+
+
+def _wrap(i, n):
+    """The kernel's wrap_low: one compare, which suffices for i in [-n, n)."""
+    i = np.asarray(i)
+    assert ((i >= -n) & (i < n)).all()
+    return np.where(i < 0, i + n, i)
+
+
+def roll_model(x, shift, axis, aligned=True):
+    """out of the roll kernel on ``x`` [rows, cols] float32."""
+    rows, cols = x.shape
+    vec, s = probes.roll_plan(x.shape, shift, axis, aligned)
+    if x.size == 0:
+        return x.copy()
+    r = np.arange(rows)[:, None]
+    if not vec:                           # one float a thread
+        c = np.arange(cols)[None, :]
+        y = x[_wrap(r - s, rows), c] if axis == 0 else x[r, _wrap(c - s,
+                                                                   cols)]
+    else:                                 # one 16-byte vector a thread
+        cols_v = cols // 4
+        xv = x.reshape(rows, cols_v, 4)
+        c = np.arange(cols_v)[None, :]
+        if axis == 0:
+            y = xv[_wrap(r - s, rows), c]
+        else:
+            q, m = s // 4, s % 4          # the C entry's split, on the host
+            hi = xv[r, _wrap(c - q, cols_v)]
+            if m == 0:
+                y = hi
+            else:
+                lo = xv[r, _wrap(c - q - 1, cols_v)]
+                y = np.stack([(lo if v == "lo" else hi)[..., lane]
+                              for v, lane in _roll_selects()[m]], -1)
+        y = y.reshape(rows, cols)
+    return x + np.float32(0.5) * y        # two roundings, as add_half
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+
+ROLL_WIDTHS = list(range(1, 10)) + list(range(128, 261))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shift", range(-5, 10))
+def test_roll_model_is_the_plain_version(shift, axis):
+    """Every width of ROLL_WIDTHS at 1, 3 and 8 rows, vectors where the
+    plan allows and the scalar path (misaligned) always."""
+    rng = np.random.default_rng(1000 + 31 * shift + axis)
+    for cols in ROLL_WIDTHS:
+        for rows in (1, 3, 8):
+            x = rng.normal(size=(rows, cols)).astype(np.float32)
+            plain = probes.probe_roll_ref(torch.from_numpy(x), shift,
+                                          axis).numpy()
+            oracle = x + np.float32(0.5) * np.roll(x, shift, axis)
+            np.testing.assert_array_equal(_bits(plain), _bits(oracle))
+            for aligned in (True, False):
+                got = roll_model(x, shift, axis, aligned)
+                np.testing.assert_array_equal(
+                    _bits(got), _bits(plain),
+                    err_msg=f"{rows}x{cols} shift {shift} axis {axis} "
+                    f"aligned {aligned}")
+
+
+def test_roll_plan():
+    """Vectors only for 16-byte rows and aligned pointers; the shift in
+    [0, n_axis) for any integer, 0 on an empty axis."""
+    assert probes.roll_plan((3, 8), -5, 1, True) == (True, 3)
+    assert probes.roll_plan((3, 8), 2 ** 40 + 1, 0, True) == (True, 2)
+    assert probes.roll_plan((3, 6), 2, 1, True) == (False, 2)
+    assert probes.roll_plan((3, 8), 2, 1, False) == (False, 2)
+    assert probes.roll_plan((0, 8), 7, 0, True) == (True, 0)
+
+
+@pytest.mark.parametrize("name", ["P1 roll-axis0-[128,256]",
+                                  "P2 roll-axis1-[256,128]"])
+def test_roll_model_on_the_script_runs(name):
+    case = probes.CASES[name]
+    a = case.inputs()
+    axis = 0 if name.startswith("P1") else 1
+    got = roll_model(a["x"], 2, axis)
+    plain, _, _ = probes.run_case(name, torch.device("cpu"), plain=True)
+    np.testing.assert_array_equal(_bits(got), _bits(plain.numpy()))
+    assert case.error(a, got) == 0.0
+
+
+# -- the tiled transpose's map ----------------------------------------------
+
+def _swizzle(g, r, tr):
+    """The kernel's swizzle<TR>: chunk g of tile row r."""
+    return g ^ (((r >> 2) * (32 // tr)) & 7)
+
+
+def _threads(tr, tc):
+    """Per thread of a CTA: (load row i, load chunk j, store row c, store
+    chunk k), as the kernel splits threadIdx.x by shifts and masks."""
+    cv, rv = tc // 4, tr // 4
+    t = np.arange(tr * cv)
+    return t, t // cv, t % cv, t // rv, t % rv
+
+
+def transpose_model(x, aligned=True, tile=None):
+    """out [cols, rows] of the transpose kernel on ``x``; NaN where no
+    thread stores (the wrapper's torch.empty)."""
+    const = _constants()
+    tr, tc = tile or (const["TRANSPOSE_ROWS"], const["TRANSPOSE_COLS"])
+    rows, cols = x.shape
+    vec = probes.transpose_vec(x.shape, aligned)
+    out = np.full((cols, rows), np.nan, np.float32)
+    written = np.zeros((cols, rows), np.int64)
+    cv = tc // 4
+    t, i, j, c, k = _threads(tr, tc)
+    for r0 in range(0, rows, tr):
+        for c0 in range(0, cols, tc):
+            tile_f = np.full(tr * tc, np.nan, np.float32)
+            r, col = r0 + i, c0 + 4 * j
+            v = np.zeros((t.size, 4), np.float32)
+            for e in range(4):
+                # VEC loads a whole chunk where col < cols (cols % 4 == 0)
+                ok = (r < rows) & ((col < cols) if vec else (col + e < cols))
+                v[ok, e] = x[r[ok], col[ok] + e]
+            phys = _swizzle(t, i, tr)
+            assert np.unique(phys).size == t.size     # a permutation
+            for e in range(4):
+                tile_f[4 * phys + e] = v[:, e]
+            oc, orow = c0 + c, r0 + 4 * k
+            w = np.stack([tile_f[4 * _swizzle((4 * k + u) * cv + (c >> 2),
+                                              4 * k + u, tr) + (c & 3)]
+                          for u in range(4)], -1)
+            for u in range(4):
+                ok = (oc < cols) & (orow < rows) & (
+                    True if vec else orow + u < rows)
+                if vec:
+                    assert (orow[ok] + 4 <= rows).all()
+                out[oc[ok], orow[ok] + u] = w[ok, u]
+                written[oc[ok], orow[ok] + u] += 1
+    assert (written == 1).all()                       # each element once
+    return out
+
+
+TRANSPOSE_SHAPES = [(1, 1), (1, 4), (4, 1), (4, 4), (3, 5), (31, 17),
+                    (32, 16), (33, 16), (64, 64), (100, 260), (260, 100),
+                    (256, 128), (257, 131)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", TRANSPOSE_SHAPES)
+def test_transpose_model_is_the_transpose(shape, aligned):
+    x = np.random.default_rng(shape[0] * 1000 + shape[1]).normal(
+        size=shape).astype(np.float32)
+    got = transpose_model(x, aligned)
+    np.testing.assert_array_equal(_bits(got), _bits(x.T))
+    plain = probes.probe_transpose_ref(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(plain))
+
+
+def test_transpose_model_on_the_script_run():
+    name = "P6 transpose-256x128"
+    case = probes.CASES[name]
+    a = case.inputs()
+    got = transpose_model(a["x"])
+    plain, _, _ = probes.run_case(name, torch.device("cpu"), plain=True)
+    np.testing.assert_array_equal(_bits(got), _bits(plain.numpy()))
+    assert case.error(a, got) == 0.0
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (16, 32), (32, 16), (32, 32)])
+def test_transpose_swizzle_is_free_of_bank_conflicts(tile):
+    """Bank of float w of the tile: w % 32. The loads' 16-byte stores
+    run in phases of 8 threads, each phase's 8 chunks one 128-byte line;
+    each of a warp's four 4-byte reads of the store phase hits 32 distinct
+    banks. The model at this tile is the transpose as well."""
+    tr, tc = tile
+    cv = tc // 4
+    t, i, _, c, k = _threads(tr, tc)
+    phys = _swizzle(t, i, tr)
+    for p0 in range(0, t.size, 8):
+        banks = (4 * (phys[p0:p0 + 8] % 8))
+        assert np.unique(banks).size == 8
+    for w0 in range(0, t.size, 32):
+        cw, kw = c[w0:w0 + 32], k[w0:w0 + 32]
+        for u in range(4):
+            word = 4 * _swizzle((4 * kw + u) * cv + (cw >> 2), 4 * kw + u,
+                                tr) + (cw & 3)
+            assert np.unique(word % 32).size == 32, (tile, w0, u)
+    x = np.random.default_rng(7).normal(size=(67, 45)).astype(np.float32)
+    np.testing.assert_array_equal(
+        _bits(transpose_model(x, tile=tile)), _bits(x.T))
