@@ -85,7 +85,15 @@ Phases, in order; any failure exits non-zero:
    projection, direction and ratio gradients, the kNN's indices, and the
    parameters, Adam moments and absgrads after it bit for bit equal; the
    doubled step adds one launch of each seg kernel, the row sum and the
-   kNN.
+   kNN. The row sum's second job, the backward of the direction loss's
+   neighbour gather (``rank_sum_gather``), launches once a direction
+   fire, the doubled one's included. On the doubled step's own cotangent
+   and kNN indices (16384 x 5 rows of 3 into 16384, most of them the dead
+   query rows' zeros) that job is held bit for bit to the step's result,
+   a second launch and the CPU plain version of every row, within the
+   gradient gate to the card's plain version and to ATen's backward of
+   ``x[idx]``, and timed beside them and its bound (the
+   ``rank_sum_gather`` entry of the kernels line).
    Then the port's ``cli.fit_edges`` and ``cli.evaluate`` on its output.
 6. The other render paths at full width: the same scan and recipe for
    3 epochs each with (a) ``tile_pair_kernel: true`` (the v4 pair path:
@@ -150,8 +158,8 @@ Phases, in order; any failure exits non-zero:
    transpose probes' launch floor (their kernels' device time on the same
    runs at one 16-byte vector each) beside their device time; the shard-sum
    kernel's and torch.sum's device times, warm and cold, and one device
-   kernel a shard-sum call. Every torch.profiler window of the run is in
-   phase 8, after the in-process training runs.
+   kernel a shard-sum call. Every torch.profiler window of the run but
+   phase 10's trace is in phase 8, after the in-process training runs.
 
 9. The DTU recipe at full width (``configs/DTU.json``): the tracked
    DTU-shaped scan ``synthetic_data/DTU_synth/data/dtu_s0`` (30 views at
@@ -172,6 +180,26 @@ Phases, in order; any failure exits non-zero:
    CPU plain version; each timed beside its bound and, where one exists,
    the PyTorch call (the ``dtu`` entries of the kernels line).
 
+10. The port's tools beside the trainer, after phase 8 (phase 10's
+   sweep trains in-process, and its trace needs no device record):
+   (a) ``graft_entry.entry()`` on the card: its 128x128 image within 1e-5
+   of the same forward through the plain seg version on the card, one seg
+   forward launch, finite and nonzero; (b) ``graft_entry.dryrun_multichip(4,
+   "cuda")``: 4 Gloo ranks sharing the card, each exits 0 with every
+   check of the JAX dry run's stages held (compositions against the flat
+   view batch and the Gaussian-sharded epochs against the tile-sharded
+   ones within 1e-4) and has launched the seg kernels, the kNN and the
+   row sum in both its jobs; (c) ``cli.make_synthetic`` writes two 10-view 800x800 scans
+   and ``cli.sweep --backend cuda`` trains both with the recipe cut to 3
+   epochs in this process (launches of each seg kernel and the row sum =
+   2 x epochs x views, finite losses, one PLY a scene), then on 2
+   torchrun ranks sharing the card into another output directory: rank r
+   trains scene r only, each PLY bit for bit the in-process one; (d)
+   ``utils/profiling``: ``device_timer`` around 10 fixture seg renders
+   (forward and backward) takes at least their CUDA-event time, and
+   ``trace`` over one render writes a Chrome trace whose host records
+   hold one launch in each seg kernel's span.
+
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
 ``cli/make_synthetic.py --seed 11`` makes SYN01, then fit_edges and
@@ -183,7 +211,9 @@ beside the JAX package's dtu_s0 audit and DTU-synthetic spread.
 With ``--profile_dir``, phases 3 and 4 also trace epoch 2 with
 torch.profiler (``cli.train --profile_dir``; the tracing slows those
 epochs) and print, per path, the device's busy share of the window, the
-kernel launches per view step and the top device kernels.
+kernel launches per view step and the top device kernels;
+``scripts/torch_gather_trace.py`` reads the direction loss's gather
+backward from phase 5's trace (``<dir>/orient/trace.json``).
 
 The line before the last names the card and its power limit; before it, a
 JSON object lists each kernel's launches on its path, error, times and
@@ -338,6 +368,10 @@ LAB_SCRIPTS = ("torch_kernel_lab", "torch_cumprod_lab",
 LOGSUM_TOL = 5e-5
 HOST_CALLS = 2000           # calls per part of phase 8's host-cost split
 FLOOR_PROBES = ("roll", "transpose")   # phase 8: timed at their launch floor
+# phase 10: the dry run's ranks (the port's tests run 4 too); the fixture
+# seg renders device_timer times
+DRYRUN_RANKS = 4
+PROFILED_RENDERS = 10
 
 
 def run(cmd) -> str:
@@ -1666,6 +1700,17 @@ def kernel_modules():
     return (segpair, raster_v2, knn, pair, raster_v1, rank_sum, shard_sum)
 
 
+def kernel_launches() -> dict:
+    """Every kernel's launches since the counts were last set to 0."""
+    return {k: v for mod in kernel_modules()
+            for k, v in mod.launch_counts.items()}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
+
+
 def no_launches(**counts):
     """Every kernel's expected launches: 0 unless given."""
     zero = {k: 0 for mod in kernel_modules() for k in mod.launch_counts}
@@ -1673,11 +1718,12 @@ def no_launches(**counts):
 
 
 def write_config(tmp: str, epochs, tag: str, orient=None, seed=None,
-                 training=None, **model):
+                 training=None, data_dir=None, **model):
     """The recipe cut for a run tagged ``tag``, written to
     ``<tmp>/<tag>.json``; returns (config dict, path). ``epochs`` and
     ``seed`` None keep the recipe's; ``orient`` updates its orientation
-    losses, ``training`` its training section, ``model`` its model."""
+    losses, ``training`` its training section, ``model`` its model; the
+    scans are read from ``data_dir`` (default ``<tmp>/data``)."""
     with open(RECIPE) as f:
         cfg = json.load(f)
     if epochs is not None:
@@ -1687,7 +1733,7 @@ def write_config(tmp: str, epochs, tag: str, orient=None, seed=None,
     cfg["model"].update(model)
     cfg["training"].update(training or {})
     cfg["training"]["loss"]["orientation_losses"].update(orient or {})
-    cfg["data"]["base_dir"] = os.path.join(tmp, "data") + "/"
+    cfg["data"]["base_dir"] = (data_dir or os.path.join(tmp, "data")) + "/"
     for k in ("output_dir", "checkpoint_dir", "log_dir"):
         cfg["output"][k] = os.path.join(tmp, tag, k) + "/"
     cfg_path = os.path.join(tmp, f"{tag}.json")
@@ -1714,8 +1760,7 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     cfg, cfg_path = write_config(tmp, epochs, tag, orient=orient, seed=seed,
                                  training=training, **model)
     captured = io.StringIO()
-    for mod in kernel_modules():
-        mod.reset_launch_counts()
+    reset_launches()
     argv = ["--config_file", cfg_path, "--scene_name", scan, "--backend",
             "cuda", "--force_rerun"]
     if profile_dir:
@@ -1725,8 +1770,7 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
                                     else captured):
         rc = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = {k: v for mod in kernel_modules()
-                for k, v in mod.launch_counts.items()}
+    launches = kernel_launches()
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
     if profile_dir:
@@ -1805,11 +1849,15 @@ def step_twice(at_step: int):
     gets one dict a run: the projection gradients (parameters and absgrad
     sink), every gradient handed to Adam (the projection's and, on a fired
     step, the direction's and the ratio's), the kNN's neighbour indices,
-    and the parameters, both Adam moments and absgrads after the step."""
+    the direction loss's gather backward's inputs (its cotangent and
+    indices) and output, and the parameters, both Adam moments and
+    absgrads after the step."""
     from edgegaussians_tpu_torch.models import losses
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
     from edgegaussians_tpu_torch.train import optim, trainer
-    step, adam, neighbours = (trainer.view_step, optim.apply_updates,
-                              losses.update_nearest_neighbors)
+    step, adam, neighbours, gather = (trainer.view_step, optim.apply_updates,
+                                      losses.update_nearest_neighbors,
+                                      rs.gather_backward)
     runs = []
 
     def twice(state, *args, **kw):
@@ -1828,7 +1876,7 @@ def step_twice(at_step: int):
                 state.opt.counts = dict(counts)
                 state.step = at_step
                 state.generator.set_state(gen)
-            got, after, calls = [], {}, {"adam": 0, "knn": 0}
+            got, after, calls = [], {}, {"adam": 0, "knn": 0, "gather": 0}
 
             def recorded(*a, **k):
                 got.append(proj_grad(*a, **k))
@@ -1845,13 +1893,24 @@ def step_twice(at_step: int):
                 after[f"knn {calls['knn']}"] = idx.clone()
                 calls["knn"] += 1
                 return idx
+
+            def recorded_gather(g, idx, n):
+                dx = gather(g, idx, n)
+                i = calls["gather"]
+                after.update({f"gather {i} cotangent": g.detach().clone(),
+                              f"gather {i} indices": idx.clone(),
+                              f"gather {i} dx": dx.clone()})
+                calls["gather"] += 1
+                return dx
             optim.apply_updates = recorded_adam
             losses.update_nearest_neighbors = recorded_knn
+            rs.gather_backward = recorded_gather
             try:
                 out = step(state, *args, **dict(kw, proj_grad=recorded))
             finally:
                 optim.apply_updates = adam
                 losses.update_nearest_neighbors = neighbours
+                rs.gather_backward = gather
             _, _, grads, gsink = got[0]
             with torch.no_grad():
                 after.update({f"grad {g}": x.clone()
@@ -1986,6 +2045,72 @@ def downstream(tmp: str, scan: str, cfg_path: str, out_dir: str, tag: str,
     return edges, per_scan, pr
 
 
+def gather_backward_check(run: dict):
+    """Phase 5's direction loss's gather backward (``ops/rank_sum.
+    gather_backward``, the row-sum kernel's second job) on the doubled
+    fired step's own cotangent and kNN indices (``step_twice``): the
+    kernel's result bit-equal to the step's, to a second launch and to the
+    CPU plain version of every row (``rank_sum_ref``: no row dropped),
+    within the gradient gate of the card's plain version and of ATen's
+    backward of ``x[idx]`` (``index_put_`` with accumulate, what the gather
+    ran before it had a backward of its own); then their times beside the
+    bound. Returns (max_abs_err, (ms, plain ms, library ms, device ms),
+    bound) for the kernels line, and the extra keys."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    g, idx, dx = (run[f"gather 0 {k}"] for k in ("cotangent", "indices",
+                                                  "dx"))
+    n, width = dx.shape
+    rows = g.reshape(-1, width).contiguous()
+    flat = idx.reshape(-1)
+    keep = rs.nonzero_rows(rows)
+    nz = int(keep.sum())
+    with torch.no_grad():
+        got = rs.gather_backward(g, idx, n)
+        again = rs.gather_backward(g, idx, n)
+        cpu = rs.rank_sum_ref(rows.cpu(), flat.cpu(), n)
+        plain = rs.rank_sum_ref(rows, flat, n)
+        aten = torch.zeros_like(dx).index_put_((flat,), rows,
+                                               accumulate=True)
+        torch.cuda.synchronize()
+    for what, other in (("the step's", dx), ("a second launch's", again),
+                        ("the CPU plain version's", cpu)):
+        if not torch.equal(bits(got.cpu()), bits(other.cpu())):
+            raise AssertionError(f"gather backward: not {what} bits")
+    rel = rel_err(got, plain, "gather backward against the plain version")
+    rel_a = rel_err(got, aten, "gather backward against ATen's x[idx] "
+                    "backward")
+    err = (got - plain).abs().max().item()
+    runs_all = int(torch.bincount(flat, minlength=n).max())
+    runs_kept = int(torch.bincount(flat[keep], minlength=n).max()) \
+        if nz else 0
+    acc = torch.zeros_like(dx)
+    t = {"kernel": cuda_ms(lambda: rs.gather_backward(g, idx, n), 20),
+         "plain": cuda_ms(lambda: rs.rank_sum_ref(rows, flat, n), 20),
+         "library": cuda_ms(lambda: acc.index_put_((flat,), rows,
+                                                   accumulate=True), 20),
+         "kernel_dev": queued_ms(lambda: rs.gather_backward(g, idx, n), 20)}
+    # what the sum needs: every cotangent row read once (to find the zero
+    # ones), the kept rows' indices, the [n, C] output written; one add a
+    # kept element
+    nbytes = (rows.numel() * rows.element_size()
+              + nz * flat.element_size() + n * width * 4)
+    bound = bound_ms(nbytes, nz, (width, 0))
+    log(f"gather backward at phase 5's fired step: {rows.shape[0]} rows "
+        f"({nz} not all zero) of {width} into {n}, longest run {runs_all} "
+        f"rows ({runs_kept} once the zero rows are dropped); bit-equal to "
+        f"the step's, a second launch's and the CPU plain version's; rel "
+        f"err {rel:.3g} against the card's plain version, {rel_a:.3g} "
+        f"against ATen's x[idx] backward; wrapper {t['kernel']:.4f} ms "
+        f"(device {t['kernel_dev']:.4f}), plain {t['plain']:.4f} ms, ATen's "
+        f"backward {t['library']:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    extra = {"at": "phase 5's fired step", "rows": rows.shape[0],
+             "rows_not_zero": nz, "outputs": n, "longest_run": runs_all,
+             "longest_run_kept": runs_kept}
+    return (err, (t["kernel"], t["plain"], t["library"], t["kernel_dev"]),
+            bound, extra)
+
+
 def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
     log(f"== phase 5: orientation path, {ORIENT_EPOCHS} epochs of "
         f"ABC_DexiNed on the same scan; cuts: "
@@ -2000,23 +2125,30 @@ def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
             orient=ORIENT_CUTS, if_cull_wayward=True,
             cull_wayward_apply=True, cull_wayward_at_epoch=[WAYWARD_EPOCH])
     # the doubled step hands Adam the projection's, the direction's and
-    # the ratio's gradients, in that order, and asks for neighbours once
+    # the ratio's gradients, in that order, asks for neighbours once and
+    # runs the direction loss's gather backward once
     names = check_twice(runs, ORIENT_DET_STEP,
-                        need=("grad", "adam 2", "knn 0", "mu", "nu"))
+                        need=("grad", "adam 2", "knn 0", "gather 0", "mu",
+                              "nu"))
     rows = epoch_lines(text, ORIENT_EPOCHS)
     fires = direction_fires(ORIENT_EPOCHS, VIEWS,
                             ORIENT_CUTS["start_dir_loss_at_epoch"])
     views = ORIENT_EPOCHS * VIEWS + 1
+    # the row sum: one a compositor backward, and one a direction fire
+    # (the backward of its neighbour gather, counted apart), the doubled
+    # fire's included
     expected = no_launches(segpair_fwd=views, segpair_bwd=views,
-                           rank_sum=views, knn=fires + 2)
+                           rank_sum=views, rank_sum_gather=fires + 1,
+                           knn=fires + 2)
     if launches != expected:
         raise AssertionError(f"launches {launches} on the orientation path, "
                              f"expected {expected} ({fires} direction "
                              "fires + 1 wayward cull + the doubled fire)")
     log(f"orientation determinism ok: view step {ORIENT_DET_STEP} run twice "
         f"bit-equal in {len(names)} tensors (gradients of the projection, "
-        "direction and ratio steps, kNN indices, parameters, Adam moments, "
-        "absgrads)")
+        "direction and ratio steps, kNN indices, the gather backward's "
+        "inputs and output, parameters, Adam moments, absgrads)")
+    gather = gather_backward_check(runs[0])
     alive = [r[1] for r in rows]
     # an epoch line reports alive before that epoch's density event
     if not alive[WAYWARD_EPOCH + 1] < alive[WAYWARD_EPOCH] == alive[0]:
@@ -2029,7 +2161,7 @@ def phase_orientation_path(tmp: str, scan: str, profile_dir=None):
     log(f"orientation path ok: losses={[r[0] for r in rows]} alive={alive} "
         f"launches={launches} ply={n} Gaussians")
     downstream(tmp, scan, cfg_path, out_dir, "orient")
-    return launches, [r[2] for r in rows[1:]]
+    return launches, [r[2] for r in rows[1:]], gather
 
 
 def phase_other_paths(tmp: str, scan: str, profile_dir=None):
@@ -2291,20 +2423,17 @@ def phase_view_batch(tmp: str, scan: str):
     return launches, pxs
 
 
-def run_ranks(nproc: int, tag: str, out: str, cli_argv, dist_backend=None):
-    """``scripts/torch_multiprocess_worker.py`` on ``nproc`` ranks of
-    this card through ``torch.distributed.run``: the probe, then the CLI
-    with ``cli_argv`` in the same group. Returns (rank 0's output, every
-    rank's results). Every process it starts is stopped on return."""
+def torchrun(nproc: int, tag: str, args) -> str:
+    """``torch.distributed.run --standalone`` of ``args`` (a script and
+    its arguments, or ``-m`` and a module) on ``nproc`` ranks of this card;
+    returns its output, raises unless it exits 0 within RANKS_TIMEOUT.
+    Every process it starts is stopped on return."""
     import signal
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), WORKER, "--tasks", "cli",
-           "--device", "cuda", "--out", out]
-    if dist_backend:
-        cmd += ["--dist_backend", dist_backend]
-    proc = subprocess.Popen(cmd + ["--"] + cli_argv, cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+           "--nproc_per_node", str(nproc), *args]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
     try:
         text, _ = proc.communicate(timeout=RANKS_TIMEOUT)
     finally:
@@ -2314,6 +2443,18 @@ def run_ranks(nproc: int, tag: str, out: str, cli_argv, dist_backend=None):
     if proc.returncode != 0:
         raise AssertionError(f"{tag}: torch.distributed.run exited "
                              f"{proc.returncode}:\n{text[-6000:]}")
+    return text
+
+
+def run_ranks(nproc: int, tag: str, out: str, cli_argv, dist_backend=None):
+    """``scripts/torch_multiprocess_worker.py`` on ``nproc`` ranks of
+    this card through :func:`torchrun`: the probe, then the CLI with
+    ``cli_argv`` in the same group. Returns (rank 0's output, every
+    rank's results)."""
+    args = [WORKER, "--tasks", "cli", "--device", "cuda", "--out", out]
+    if dist_backend:
+        args += ["--dist_backend", dist_backend]
+    text = torchrun(nproc, tag, args + ["--"] + cli_argv)
     results = []
     for r in range(nproc):
         with np.load(os.path.join(out, f"rank{r}.npz")) as d:
@@ -3292,6 +3433,220 @@ def phase_full(tmp: str):
         "0.0001, F@10 0.995 +- 0.001)")
 
 
+def phase_entry(device) -> dict:
+    """Phase 10a: ``graft_entry.entry()`` on the card, its image held to
+    the same forward through the plain seg version on the card; one seg
+    forward launch. Returns the launches."""
+    from edgegaussians_tpu_torch import graft_entry
+    from edgegaussians_tpu_torch.ops import segpair
+    log("== phase 10a: graft_entry.entry() on the card (128x128, seg, cap "
+        "128, budget 4096) against the plain seg forward on the card")
+    fn, args = graft_entry.entry()
+    if args[0].device.type != "cuda":
+        raise AssertionError(f"entry() put its arguments on {args[0].device}")
+    reset_launches()
+    img = fn(*args)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    kernel = segpair.segpair_fwd
+    segpair.segpair_fwd = segpair.segpair_fwd_ref
+    try:
+        plain = fn(*args)
+    finally:
+        segpair.segpair_fwd = kernel
+    if launches != no_launches(segpair_fwd=1):
+        raise AssertionError(f"entry(): launches {launches}, expected one "
+                             "seg forward")
+    total = float(img.sum())
+    if tuple(img.shape) != (128, 128) or not torch.isfinite(img).all() \
+            or not total > 0:
+        raise AssertionError(f"entry(): image {tuple(img.shape)}, sum "
+                             f"{total}")
+    e_img = (img - plain).abs().max().item()
+    check_image(e_img, "entry() image")
+    log(f"entry ok: image sum {total:.4f}, max_abs_err against the plain "
+        f"version {e_img:.3g}, launches {launches}")
+    return launches
+
+
+def phase_dryrun() -> dict:
+    """Phase 10b: ``graft_entry.dryrun_multichip(4, "cuda")``: 4 Gloo
+    ranks sharing the card, every rank's checks, and each rank's launches
+    of the seg kernels, the kNN and the row sum's two jobs. Returns rank
+    0's."""
+    from edgegaussians_tpu_torch import graft_entry
+    log(f"== phase 10b: graft_entry.dryrun_multichip({DRYRUN_RANKS}, "
+        "'cuda'): Gloo ranks sharing the card")
+    t0 = time.time()
+    results = graft_entry.dryrun_multichip(DRYRUN_RANKS, "cuda")
+    for r in results:
+        if not all(r["launches"].get(k, 0) > 0 for k in
+                   ("segpair_fwd", "segpair_bwd", "knn", "rank_sum",
+                    "rank_sum_gather")):
+            raise AssertionError(f"dry run rank {r['rank']} launches "
+                                 f"{r['launches']}: a kernel of its path "
+                                 "did not launch")
+    log(f"dry run ok in {time.time() - t0:.1f}s (process start included): "
+        f"every rank's checks hold; launches per rank "
+        f"{[r['launches'] for r in results]}")
+    return results[0]["launches"]
+
+
+def sweep_ply(out: str, scan: str) -> bytes:
+    with open(os.path.join(out, scan, "gaussians_all.ply"), "rb") as f:
+        return f.read()
+
+
+def phase_sweep(tmp: str) -> dict:
+    """Phase 10c: ``cli.make_synthetic`` writes two scans; ``cli.sweep
+    --backend cuda`` trains both in this process (the recipe cut to EPOCHS
+    epochs; launches, finite losses, one PLY a scene), then on 2 torchrun
+    ranks sharing the card into another output directory: each rank's
+    summary holds its scene, each PLY bit for bit the in-process one.
+    Returns the in-process sweep's launches."""
+    from edgegaussians_tpu_torch.cli import make_synthetic, sweep
+    from edgegaussians_tpu_torch.io.ply import read_gaussian_params_from_ply
+    scans = ("sweepA", "sweepB")
+    base = os.path.join(tmp, "sweep_scans")
+    log(f"== phase 10c: cli.make_synthetic ({len(scans)} scans, {VIEWS} "
+        f"views, 800x800), then cli.sweep --backend cuda over them, "
+        f"{EPOCHS} epochs of ABC_DexiNed, in this process and on 2 torchrun "
+        "ranks")
+    t0 = time.time()
+    if make_synthetic.main(["--base_dir", base, "--scan_names", *scans,
+                            "--n_views", str(VIEWS)]):
+        raise AssertionError("cli.make_synthetic returned non-zero")
+    log(f"scans made in {time.time() - t0:.1f}s")
+    data = os.path.join(base, "data")
+    outs = {}
+    for tag in ("sweep_one", "sweep_ranks"):
+        cfg, cfg_path = write_config(tmp, EPOCHS, tag, data_dir=data)
+        outs[tag] = (os.path.dirname(run_dir(cfg, scans[0])), cfg_path)
+    out, cfg_path = outs["sweep_one"]
+    argv = ["--config_file", cfg_path, "--scene_names", ",".join(scans),
+            "--backend", "cuda"]
+    captured = io.StringIO()
+    reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(Tee(sys.stdout, captured)):
+        rc = sweep.main(argv)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.sweep returned {rc}")
+    rows = epoch_lines(captured.getvalue(), len(scans) * EPOCHS)
+    views = len(scans) * EPOCHS * VIEWS
+    expected = no_launches(segpair_fwd=views, segpair_bwd=views,
+                           rank_sum=views)
+    if launches != expected:
+        raise AssertionError(f"launches {launches} of the sweep, expected "
+                             f"{expected}")
+    with open(os.path.join(out, "sweep_p0.json")) as f:
+        summary = json.load(f)
+    if set(summary) != set(scans):
+        raise AssertionError(f"sweep_p0.json holds {sorted(summary)}")
+    for scan in scans:
+        pos, _, _, opac = read_gaussian_params_from_ply(
+            os.path.join(out, scan, "gaussians_all.ply"))
+        if pos.shape != (summary[scan]["gaussians"], 3) \
+                or not np.isfinite(pos).all() or not np.isfinite(opac).all():
+            raise AssertionError(f"{scan}: gaussians_all.ply holds "
+                                 f"{pos.shape}, summary {summary[scan]}")
+    log(f"sweep in one process ok in {wall:.1f}s: losses "
+        f"{[r[0] for r in rows]}, launches {launches}, summary {summary}")
+
+    out_r, cfg_path_r = outs["sweep_ranks"]
+    t0 = time.time()
+    torchrun(len(scans), "sweep on 2 ranks",
+             ["-m", "edgegaussians_tpu_torch.cli.sweep", "--config_file",
+              cfg_path_r, "--scene_names", ",".join(scans), "--backend",
+              "cuda", "--force_rerun"])
+    for rank, scan in enumerate(scans):
+        with open(os.path.join(out_r, f"sweep_p{rank}.json")) as f:
+            got = json.load(f)
+        if set(got) != {scan}:
+            raise AssertionError(f"sweep_p{rank}.json holds {sorted(got)}, "
+                                 f"expected {scan} only")
+        if sweep_ply(out_r, scan) != sweep_ply(out, scan):
+            raise AssertionError(f"{scan}: rank {rank}'s PLY differs from "
+                                 "the in-process sweep's")
+    log(f"sweep on 2 ranks ok in {time.time() - t0:.1f}s (process start "
+        "included): rank r trained scene r, each PLY bit for bit the "
+        "in-process one")
+    return launches
+
+
+def phase_profiling(device) -> None:
+    """Phase 10d: ``utils/profiling`` on the card. ``device_timer`` around
+    PROFILED_RENDERS fixture seg renders, forward and backward, takes at
+    least the CUDA-event time of the same block; ``trace`` over one render
+    writes a trace whose host records hold each seg kernel's launch (its
+    device records are not required: torch.profiler drops them after the
+    in-process training runs)."""
+    from torch.profiler import record_function
+
+    from edgegaussians_tpu_torch.ops import segpair
+    from edgegaussians_tpu_torch.utils import profiling
+    log(f"== phase 10d: utils/profiling on the card: device_timer over "
+        f"{PROFILED_RENDERS} fixture seg renders, trace over one")
+    cases, basis = seg_cases(device)
+
+    def render(cs):
+        with record_function("segpair_fwd"):
+            segpair.segpair_fwd(cs["feats"], cs["s_f"], basis)
+        with record_function("segpair_bwd"):
+            segpair.segpair_bwd(cs["feats"], cs["s_f"], basis, cs["g"])
+
+    render(cases[0])
+    torch.cuda.synchronize()
+    timed = {}
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profiling.device_timer(timed, "renders", device):
+        start.record()
+        for i in range(PROFILED_RENDERS):
+            render(cases[i % len(cases)])
+        stop.record()
+    event_ms = start.elapsed_time(stop)
+    if not timed["renders"] * 1e3 >= event_ms:
+        raise AssertionError(f"device_timer {timed['renders'] * 1e3:.4f} ms "
+                             f"< the events' {event_ms:.4f} ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            render(cases[0])
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and "dur" in e]
+    launches = [e for e in events if "LaunchKernel" in e["name"]]
+    device_records = [e for e in events if e.get("cat") == "kernel"]
+    for name in ("segpair_fwd", "segpair_bwd"):
+        spans = [e for e in events if e["name"] == name
+                 and e.get("cat") == "user_annotation"]
+        inside = [e for e in launches for a in spans
+                  if a["ts"] <= e["ts"] <= a["ts"] + a["dur"]]
+        if len(spans) != 1 or len(inside) != 1:
+            raise AssertionError(f"trace: {len(spans)} {name} spans holding "
+                                 f"{len(inside)} host launch records")
+    log(f"profiling ok: device_timer {timed['renders'] * 1e3:.4f} ms >= "
+        f"events {event_ms:.4f} ms over {PROFILED_RENDERS} renders; trace: "
+        f"one host launch record in each seg kernel's span, "
+        f"{len(launches)} launch records, {len(device_records)} device "
+        "kernel records")
+
+
+def phase_slice_tools(device) -> dict:
+    """Phase 10: the entry, the dry run, the sweep and utils/profiling on
+    the card; returns each path's launches."""
+    t0 = time.time()
+    out = {"entry": phase_entry(device), "dryrun": phase_dryrun()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["sweep"] = phase_sweep(tmp)
+    phase_profiling(device)
+    log(f"phase 10 ok in {time.time() - t0:.1f}s")
+    return out
+
+
 def lab_kernel_rows(launches):
     """(name, source, replaced TPU kernel, launches) of the lab's kernels."""
     from edgegaussians_tpu_torch.lab import chunked, probes
@@ -3360,8 +3715,10 @@ def main() -> int:
         phase_determinism(tmp, scan)
         dense_launches, dense_pxs = phase_fallback_path(tmp, scan,
                                                         args.profile_dir)
-        orient_launches, orient_pxs = phase_orientation_path(
+        orient_launches, orient_pxs, gather = phase_orientation_path(
             tmp, scan, args.profile_dir)
+        err["rank_sum_gather"], ms["rank_sum_gather"], \
+            bounds["rank_sum_gather"], extra["rank_sum_gather"] = gather
         others = phase_other_paths(tmp, scan, args.profile_dir)
         _, batch_pxs = phase_view_batch(tmp, scan)
         multi, (probe_launches, probe_err) = phase_multi_rank(tmp, scan)
@@ -3393,6 +3750,13 @@ def main() -> int:
     bounds.update(bounds_l)
     for name, keys in extra_l.items():
         extra.setdefault(name, {}).update(keys)
+    # after phase 8: its profiler windows come after every in-process
+    # training run, and phase 10's trace needs no device record
+    slice_launches = phase_slice_tools(device)
+    for path, counts in slice_launches.items():
+        for name, n in counts.items():
+            if n:
+                extra.setdefault(name, {})[f"launches_{path}"] = n
     from edgegaussians_tpu_torch.ops import (
         knn, pair, rank_sum, raster_v1, raster_v2, segpair, shard_sum)
     kernels = []
@@ -3423,6 +3787,10 @@ def main() -> int:
             ("rank_sum", rank_sum.KERNEL_SOURCE,
              "edgegaussians_tpu/ops/composite.py:136 (_scatter_rows: an "
              "XLA scatter-add, no Pallas kernel)", seg_launches),
+            ("rank_sum_gather", rank_sum.KERNEL_SOURCE,
+             "edgegaussians_tpu/models/losses.py:154 (the backward of the "
+             "gather means[nn_indices[:, k]]: an XLA scatter-add, no "
+             "Pallas kernel)", orient_launches),
             ("shard_sum", shard_sum.KERNEL_SOURCE,
              "tests/test_vma.py:205, scripts/vma_pallas_repro.py:52",
              {"shard_sum": probe_launches}),

@@ -89,6 +89,25 @@ def _build_mesh(args, cfg, backend: str, argv):
     return mesh, strategy
 
 
+def scene_inputs(cfg, scene_name):
+    """(seed points, scene) of one scene: the seed points drawn as
+    train_gaussians.py:246-257 draws them (``default_rng(training.seed)``,
+    then random init or the scene's seed file: the JAX CLIs' NumPy draws),
+    then the scene loaded. ``cli/sweep.py`` trains each scene from it."""
+    rng = np.random.default_rng(cfg.training.seed)
+    if cfg.model.init_random_init:
+        seed_pts = seeds_mod.init_seed_points_random(
+            cfg.model.init_min_num_gaussians,
+            cfg.model.random_init_box_center,
+            cfg.model.random_init_box_size, rng)
+    else:
+        _, _, seed_path = parsers.get_paths_from_data_config(cfg.data,
+                                                             scene_name)
+        seed_pts = seeds_mod.init_seed_points_from_file(
+            seed_path, cfg.model.init_min_num_gaussians, rng)
+    return seed_pts, parsers.load_scene(cfg.data, scene_name)
+
+
 def main(argv=None):
     try:
         run(argv)
@@ -143,19 +162,7 @@ def run(argv=None):
     mesh, mesh_strategy = _build_mesh(args, cfg, backend, argv)
     lead = distributed.rank() == 0
 
-    # seed points (train_gaussians.py:246-257), the JAX CLI's NumPy draws
-    rng = np.random.default_rng(cfg.training.seed)
-    _, _, seed_path = parsers.get_paths_from_data_config(cfg.data, scene_name)
-    if cfg.model.init_random_init:
-        seed_pts = seeds_mod.init_seed_points_random(
-            cfg.model.init_min_num_gaussians,
-            cfg.model.random_init_box_center,
-            cfg.model.random_init_box_size, rng)
-    else:
-        seed_pts = seeds_mod.init_seed_points_from_file(
-            seed_path, cfg.model.init_min_num_gaussians, rng)
-
-    scene = parsers.load_scene(cfg.data, scene_name)
+    seed_pts, scene = scene_inputs(cfg, scene_name)
 
     # optional scene-unit scaling (train_gaussians.py:269-284)
     if cfg.data.scale_scene_unit:

@@ -9,6 +9,9 @@
 // It stands for the JAX package's _scatter_rows
 // (edgegaussians_tpu/ops/composite.py:140-186), an XLA scatter-add (or sort
 // plus segment_sum) that is deterministic on the TPU; no Pallas kernel.
+// It is also the backward of the direction loss's neighbour gather
+// (ops/rank_sum.py gather_backward; models/losses.py direction_loss), for
+// which ATen's CUDA index backward adds in an order of its own.
 //
 // Input contract (built by ops/rank_sum.py): the keys of the B rows, int32,
 // sorted ascending by a stable sort, so rows with equal keys stand in row
@@ -25,10 +28,14 @@
 // The design: one thread per (sorted position, column). The thread at the
 // first position of a key's run walks the run in order and writes the
 // output element; every other thread returns. The c threads of one position
-// read one row's c contiguous floats. Runs are short (a Gaussian touches at
-// most max_tiles_per_gaussian tiles, 64), so the walk is a few dozen
-// dependent adds whose loads do not depend on the sum. No atomics, no
-// cross-thread order.
+// read one row's c contiguous floats. The walk is as long as the longest
+// run: one dependent add a row, whose loads do not depend on the sum. Runs
+// are short on both jobs: a Gaussian touches at most max_tiles_per_gaussian
+// tiles (64) in a compositor's backward; in the direction loss's gather
+// backward a live row's run is the number of query rows that list it as a
+// neighbour, once the wrapper has dropped the all-zero rows (the dead query
+// rows', which would otherwise pile thousands of rows onto the few live
+// rows nearest the dead ones). No atomics, no cross-thread order.
 
 #include <cuda_runtime.h>
 

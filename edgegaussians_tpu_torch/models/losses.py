@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from edgegaussians_tpu_torch.ops.knn import knn
+from edgegaussians_tpu_torch.ops.rank_sum import gather_rows
 from edgegaussians_tpu_torch.ops.transforms import major_directions
 
 
@@ -93,9 +94,11 @@ def direction_loss(means: torch.Tensor, scales: torch.Tensor,
     direction and the unit vectors to its neighbours ``nn_indices [N,m]``
     (m = k for enforce_full; 2k, of which the k best aligned count, for
     enforce_half). ``scales`` are linear. A neighbour at the row's own
-    position has an infinite sqrt derivative in both packages."""
+    position has an infinite sqrt derivative in both packages. The
+    neighbours' gradient adds into ``means`` in row order
+    (``ops/rank_sum.gather_rows``), so a fired step repeats bit for bit."""
     majors = major_directions(scales, quats)                      # [N,3]
-    d = means[:, None, :] - means[nn_indices]                     # [N,m,3]
+    d = means[:, None, :] - gather_rows(means, nn_indices)        # [N,m,3]
     norm = torch.sqrt(torch.sum(d * d, dim=-1))
     d = d / torch.clamp(norm, min=1e-12)[..., None]
     align = torch.abs(torch.sum(majors[:, None, :] * d, dim=-1))  # [N,m]

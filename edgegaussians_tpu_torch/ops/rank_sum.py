@@ -3,7 +3,10 @@
 Every compositor's backward ends by adding its per-pair (or per-slot)
 gradient rows ``[d packed, |d means2d|]`` into per-Gaussian rows by depth
 rank: ``ops/segpair.py`` (the seg and v4 pair paths), and
-``ops/composite.py`` (the dense frames and the pair-prefix frame). The JAX
+``ops/composite.py`` (the dense frames and the pair-prefix frame). So does
+the backward of the direction loss's neighbour gather (:func:`gather_rows`,
+``models/losses.py``), whose autograd form adds with atomics across
+threads on the CPU and in another order on every launch on the card. The JAX
 package does it with ``_scatter_rows`` (composite.py:140-186), an XLA
 scatter-add that is deterministic on the TPU. A float ``index_add_`` on
 CUDA is not: its atomics add in another order on every launch, so the
@@ -22,6 +25,15 @@ input:
   row, for CPU tensors (where it adds in row order, so it gives the
   kernel's bits), and the yardstick the kernel is held to on the card.
 
+:func:`gather_rows` is ``x[idx]`` whose backward, :func:`gather_backward`,
+is the row sum of the cotangent's rows by the flattened ``idx``. On the
+card it drops the rows that are all zeros before it sorts: adding a +0 or
+-0 row never changes a sum that starts at +0, so the bits are those of
+the whole sum, and the direction loss's dead query rows (whose cotangents
+are zeros, and whose neighbours are the same few live rows) add no runs
+of thousands of rows for one thread each to walk. It counts its launches
+apart (``launch_counts["rank_sum_gather"]``).
+
 Dropped rows (``valid`` False, or the index ``n``) add nowhere. The
 compositors' dropped rows hold zeros, so dropping them changes a sum at
 most from -0 to +0.
@@ -38,9 +50,10 @@ from edgegaussians_tpu_torch.ops import _build
 
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/rank_sum.cu"
 
-# Launches of the kernel since the last reset_launch_counts(); only the
-# kernel wrapper below adds to it.
-launch_counts = {"rank_sum": 0}
+# Launches of the kernel since the last reset_launch_counts(), by the job
+# that launched it: the compositors' row sums (rank_sum) and the gather's
+# backward (gather_backward); only launch_sum adds to them.
+launch_counts = {"rank_sum": 0, "rank_sum_gather": 0}
 
 # rows, keys, perm; b, n, c; out, stream
 _ARGTYPES = ((ctypes.c_void_p,) * 3
@@ -49,7 +62,8 @@ _ARGTYPES = ((ctypes.c_void_p,) * 3
 
 
 def reset_launch_counts() -> None:
-    launch_counts["rank_sum"] = 0
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _keys(idx: torch.Tensor, n: int,
@@ -61,12 +75,13 @@ def _keys(idx: torch.Tensor, n: int,
 
 
 def rank_sum(rows: torch.Tensor, idx: torch.Tensor, n: int,
-             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             valid: Optional[torch.Tensor] = None,
+             job: str = "rank_sum") -> torch.Tensor:
     """``rows [B,C]`` f32 added by ``idx [B]`` (int, in [0, n]) into
     ``[n,C]``, each output row's rows in row order. Rows where ``valid``
     [B] is False, or whose index is ``n``, are dropped. CUDA tensors sort
-    the keys and launch the kernel; CPU tensors take
-    :func:`rank_sum_ref`."""
+    the keys and launch the kernel, counted under ``job``; CPU tensors
+    take :func:`rank_sum_ref`."""
     if rows.device.type == "cpu":
         return rank_sum_ref(rows, idx, n, valid)
     if rows.device.type != "cuda":
@@ -87,20 +102,20 @@ def rank_sum(rows: torch.Tensor, idx: torch.Tensor, n: int,
                             stable=True)
     out = torch.zeros((n, rows.shape[1]), dtype=torch.float32,
                       device=rows.device)
-    launch_sum(rows, keys, perm, n, out)
+    launch_sum(rows, keys, perm, n, out, job)
     return out
 
 
 def launch_sum(rows: torch.Tensor, keys: torch.Tensor, perm: torch.Tensor,
-               n: int, out: torch.Tensor) -> None:
+               n: int, out: torch.Tensor, job: str = "rank_sum") -> None:
     """The kernel alone: ``rows [B,C]`` added into the zeroed ``out
     [n,C]`` by the stably sorted int32 ``keys [B]`` and their rows ``perm
-    [B]`` (int64), as :func:`rank_sum` calls it."""
+    [B]`` (int64), as :func:`rank_sum` calls it; one launch of ``job``."""
     stream = _build.stream(rows.device)
     _build.launch("rank_sum", "rank_sum", _ARGTYPES,
                   (rows.data_ptr(), keys.data_ptr(), perm.data_ptr(),
                    rows.shape[0], n, rows.shape[1], out.data_ptr(), stream))
-    launch_counts["rank_sum"] += 1
+    launch_counts[job] += 1
 
 
 def rank_sum_ref(rows: torch.Tensor, idx: torch.Tensor, n: int,
@@ -110,3 +125,49 @@ def rank_sum_ref(rows: torch.Tensor, idx: torch.Tensor, n: int,
     acc = rows.new_zeros((n + 1, rows.shape[1]))
     acc.index_add_(0, _keys(idx, n, valid), rows)
     return acc[:n]
+
+
+def nonzero_rows(rows: torch.Tensor) -> torch.Tensor:
+    """[B] bool: the rows of ``rows [B,C]`` with an element other than +0
+    or -0 (NaN counts as one)."""
+    return rows.ne(0).any(dim=1)
+
+
+def gather_backward(g: torch.Tensor, idx: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """The backward of :func:`gather_rows` into ``[n,C]``: the cotangent
+    ``g [*idx.shape, C]``'s rows added by the flattened ``idx`` in row
+    order. A CUDA tensor's all-zero rows are dropped (the same bits: see
+    the module's docstring) and the kernel launches, counted under
+    ``rank_sum_gather``; a CPU tensor's sum is :func:`rank_sum_ref` of
+    every row."""
+    rows = g.reshape(-1, g.shape[-1]).contiguous()
+    idx = idx.reshape(-1)
+    if rows.device.type == "cpu":
+        return rank_sum_ref(rows, idx, n)
+    return rank_sum(rows, idx, n, nonzero_rows(rows), job="rank_sum_gather")
+
+
+class GatherRows(torch.autograd.Function):
+    """``x[idx]`` for ``x [N,C]``; the backward is :func:`gather_backward`,
+    in row order, so it gives the same bits on every run and every
+    device."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return gather_backward(g, idx, ctx.n), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` (``x [N,C]`` f32, ``idx`` int of any shape, in [0, N)),
+    differentiable in ``x`` through :func:`gather_backward`: a CUDA
+    tensor's backward launches the row-sum kernel or raises; a CPU
+    tensor's is the plain version, one ``index_add_`` in row order."""
+    return GatherRows.apply(x, idx)

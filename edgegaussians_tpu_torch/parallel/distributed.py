@@ -16,8 +16,8 @@ idiom: one process per rank, launched by ``torch.distributed.run``
   collectives are called on them as they are, and a collective the
   backend does not take on that device raises.
 - :func:`replicate` broadcasts rank 0's parameters, Adam moments and
-  bookkeeping, so replicated work that the card does with atomics (the
-  direction loss's gather backward) cannot leave the ranks apart;
+  bookkeeping after each replicated update, so that no rank's last bits
+  can part from rank 0's;
   :func:`check_lockstep` raises when the ranks' states differ in any bit.
 - :func:`sharded_sum2x` is the shard-sum probe: the kernel on this rank's
   shard, then one all-reduce.

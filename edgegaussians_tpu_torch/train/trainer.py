@@ -61,6 +61,7 @@ from edgegaussians_tpu_torch.ops.tiles import tile_grid
 from edgegaussians_tpu_torch.parallel import distributed
 from edgegaussians_tpu_torch.train import optim
 from edgegaussians_tpu_torch.train.optim import OptState, annealed
+from edgegaussians_tpu_torch.utils import profiling
 
 STRATEGIES = ("whole", "bg_edge_ratio", "weighted")
 
@@ -598,7 +599,7 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
     t_prev = t0
     for epoch in range(cfg.training.num_epochs):
         if epoch == prof_epochs.start and prof_epochs:
-            prof = _start_profiler(device)
+            prof = profiling.start_profiler(device)
         if dp_mesh is not None:
             stats = run_view_batch_epoch(
                 state, epoch, step_fn, dp_rng, batch_size, images,
@@ -610,9 +611,7 @@ def train(scene, seed_points: np.ndarray, cfg: FrameworkConfig,
                 bg_scores=bg_scores)
         if prof is not None and epoch + 1 == prof_epochs.stop:
             prof.stop()
-            os.makedirs(profile_dir, exist_ok=True)
-            path = os.path.join(profile_dir, "trace.json")
-            prof.export_chrome_trace(path)
+            profiling.export_trace(prof, profile_dir)
             with open(os.path.join(profile_dir, "key_averages.txt"),
                       "w") as f:
                 f.write(prof.key_averages().table(
@@ -688,16 +687,6 @@ def _log_epoch(writer, epoch: int, stats: EpochStats, state: TrainState,
                           scene.height, **render_settings(cfg))
         writer.add_image("Output Image", torch.clamp(
             out.image, 0.0, 1.0)[None].cpu().numpy(), epoch)
-
-
-def _start_profiler(device):
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
 
 
 def save_checkpoint(state: TrainState, out_dir: str, epoch: int) -> str:

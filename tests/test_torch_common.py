@@ -45,7 +45,7 @@ def test_port_never_imports_jax():
         "'edgegaussians_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "assert len(names) >= 56, names\n"
+        "assert len(names) >= 67, names\n"
         "bad = [m for m in sys.modules if m in ('jax', 'edgegaussians_tpu')\n"
         "       or m.startswith(('jax.', 'edgegaussians_tpu.'))]\n"
         "assert not bad, bad\n")
@@ -296,9 +296,55 @@ def test_synthetic_copy_writes_the_same_scene_and_parsers_read_it(tmp_path):
                                        np.random.default_rng(2)))
 
 
+def _colmap_db_calls(m):
+    """A COLMAP database written through ``m`` and read back: cameras,
+    images, keypoints, matches in both orders, pair ids, blobs."""
+    import tempfile
+    r = np.random.default_rng(13)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "database.db")
+        with m.ColmapDatabase(path) as db:
+            cam = db.add_camera(1, 64, 48, [50.0, 50.0, 32.0, 24.0])
+            ims = [db.add_image(f"{i}.png", cam) for i in range(3)]
+            for i in ims:
+                db.add_keypoints(i, r.uniform(0, 64, (10, 2)))
+                db.add_descriptors(i, r.integers(0, 255, (10, 128)))
+            db.add_matches(ims[2], ims[0], r.integers(0, 10, (6, 2)))
+            db.add_two_view_geometry(ims[0], ims[1],
+                                     r.integers(0, 10, (4, 2)))
+        db = m.ColmapDatabase(path)
+        try:
+            out = (db.cameras(), db.images(),
+                   [db.keypoints(i) for i in ims + [99]],
+                   db.matches(ims[0], ims[2]), db.matches(ims[2], ims[0]),
+                   db.matches(ims[0], ims[1]))
+            geometry = db.conn.execute(
+                "SELECT * FROM two_view_geometries").fetchall()
+        finally:
+            db.close()
+    return out + (list(geometry[0]),
+                  m.image_ids_to_pair_id(7, 3), m.pair_id_to_image_ids(
+                      m.image_ids_to_pair_id(3, 7)),
+                  m.blob_to_array(m.array_to_blob(np.arange(6.0)),
+                                  np.float64, (2, 3)),
+                  m.blob_to_array(None, np.float32, (0, 2)))
+
+
+def _cluster_ply_bytes(m):
+    """The bytes of ``m.export_clusters_as_ply`` of seeded clusters."""
+    import tempfile
+    points = np.random.default_rng(14).uniform(0, 1, (30, 3))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clusters.ply")
+        m.export_clusters_as_ply(points, [{0, 3, 5}, set(range(10, 30))],
+                                 path)
+        with open(path, "rb") as f:
+            return f.read()
+
+
 def _copy_cases():
-    """Per copied eval/extract module: calls of its public functions on
-    NumPy inputs made from a seed, as (name, fn(module) -> result)."""
+    """Per copied NumPy module: calls of its public functions on NumPy
+    inputs made from a seed, as (name, fn(module) -> result)."""
     r = np.random.default_rng(12)
     cloud = r.uniform(0, 1, (300, 3))
     other = r.uniform(0, 1, (200, 3))
@@ -341,6 +387,8 @@ def _copy_cases():
                         np.tile([[1.0, 0, 0]], (40, 1)),
                         rng=np.random.default_rng(3))[1]),
         "extract.pipeline": lambda m: m.major_directions_np(scales, quats),
+        "io.colmap_db": _colmap_db_calls,
+        "vis.vis_utils": _cluster_ply_bytes,
     }
 
 
@@ -354,7 +402,7 @@ def _assert_same_tree(a, b, where):
         assert len(a) == len(b), where
         for i, (x, y) in enumerate(zip(a, b)):
             _assert_same_tree(x, y, f"{where}[{i}]")
-    elif isinstance(a, set):
+    elif isinstance(a, (set, str, bytes)):
         assert a == b, where
     elif a is None:
         assert b is None, where
@@ -366,9 +414,10 @@ def _assert_same_tree(a, b, where):
 
 @pytest.mark.parametrize("module", list(_copy_cases()))
 def test_numpy_eval_and_extract_copies_match_jax(module):
-    """The port's copies of the JAX package's NumPy-only eval/extract
-    modules give what the originals give, call for call (the KD-tree
-    behind eval.neighbors differs, C++ vs scipy; both are exact)."""
+    """The port's copies of the JAX package's NumPy-only modules (eval,
+    extract, the COLMAP database, the visualization helpers) give what the
+    originals give, call for call (the KD-tree behind eval.neighbors
+    differs, C++ vs scipy; both are exact)."""
     import importlib
     port = importlib.import_module(f"edgegaussians_tpu_torch.{module}")
     orig = importlib.import_module(f"edgegaussians_tpu.{module}")

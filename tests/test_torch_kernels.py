@@ -65,7 +65,9 @@ CPU plain version's bits exactly (both add each output's rows in row
 order), the same bits from two launches, and within 1e-5 of max-abs of
 the plain version on the card (index_add_ atomics); two backward passes
 of the seg, v4 pair and two-level renders give the same dpacked and dsink
-bits. Every one-kernel-a-call check counts the host's launch records
+bits. The row sum as the backward of ``gather_rows`` (rank_sum_gather):
+the CPU's bits on skewed int64 indices whose rows are mostly zeros, and
+within 1e-5 of max-abs of autograd's backward of ``x[idx]`` on the card. Every one-kernel-a-call check counts the host's launch records
 (_check_one_kernel_per_call).
 """
 
@@ -2122,6 +2124,48 @@ def test_rank_sum_kernel_is_the_cpu_plain_version_bit_for_bit(device, seed,
                             valid.to(device))
     scale = max(float(cpu.abs().max()) if b else 0.0, 1e-30)
     torch.testing.assert_close(got, plain, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("dead", [0.0, 0.85])
+def test_gather_rows_backward_is_the_cpu_sum_of_x_idx_autograd(device, dead):
+    """``gather_rows`` (the direction loss's neighbour gather) on the card:
+    the forward is ``x[idx]``; the backward, one ``rank_sum_gather``
+    launch, gives the CPU's bits (row order, every row: the all-zero rows
+    the kernel path drops change no bit) and a second backward's, and is
+    within 1e-5 of max-abs of autograd's backward of ``x[idx]`` on the
+    card. The indices are int64 [N, 5] and skewed as the direction loss's
+    are: the rows marked dead (cotangent exactly +0 or -0, as the loss's
+    dead query rows give) all name the same 5 rows."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    n, m = 16384, 5
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.normal(size=(n, 3)).astype(np.float32))
+    idx = torch.from_numpy(r.integers(0, n, (n, m)))
+    is_dead = torch.from_numpy(r.uniform(size=n) < dead)
+    idx[is_dead] = torch.arange(5)
+    g = torch.from_numpy(r.normal(size=(n, m, 3)).astype(np.float32))
+    g[is_dead] = torch.where(torch.from_numpy(r.uniform(size=(n, m, 3))
+                                              < 0.5)[is_dead], 0.0, -0.0)
+
+    def grad(dev, fn):
+        xd = x.to(dev).requires_grad_()
+        y = fn(xd, idx.to(dev))
+        (dx,) = torch.autograd.grad(y, [xd], g.to(dev))
+        return y, dx
+
+    y_cpu, cpu = grad("cpu", rs.gather_rows)
+    before = dict(rs.launch_counts)
+    y, got = grad(device, rs.gather_rows)
+    _, again = grad(device, rs.gather_rows)
+    torch.cuda.synchronize()
+    assert rs.launch_counts == dict(before, rank_sum_gather=before[
+        "rank_sum_gather"] + 2)
+    assert torch.equal(y.cpu(), x[idx])
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _, aten = grad(device, lambda a, i: a[i])
+    scale = float(cpu.abs().max())
+    torch.testing.assert_close(got, aten, rtol=0, atol=1e-5 * scale)
 
 
 def test_rank_sum_wrapper_checks_inputs(device):
