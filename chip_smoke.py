@@ -199,6 +199,29 @@ Phases, in order; any failure exits non-zero:
    (forward and backward) takes at least their CUDA-event time, and
    ``trace`` over one render writes a Chrome trace whose host records
    hold one launch in each seg kernel's span.
+11. The harness scripts (``scripts/torch_*.py``), each run as a process
+   as a user runs it, its last line read as JSON: (a)
+   ``torch_profile_stages.py --fixture`` (800x800, camera 0): every stage
+   finite, the seg stages' pair counts those phase 2 bins for camera 0,
+   each kernel stage one launch of its kernel a call, each stage's ms,
+   device ms and launches printed; (b) ``torch_profile_train_step.py`` at
+   the recipe's 16384 capacity: every key of the JAX script finite, the
+   kNN component one ``knn`` launch a call and the direction component
+   one ``rank_sum_gather``; its ``expected_launches_per_step`` printed
+   beside the host launch records of a seg main-path view step (a report);
+   (c) ``torch_epoch_ab.py --turns 2`` on a scan made as phase 3's, 6
+   epochs a variant: finite losses, ``full`` launches the kNN and
+   ``noorient`` does not; (d) ``torch_tp_dtu_bench.py`` at its defaults
+   (131072 Gaussians, 1600x1200) in ``--mode ref`` and ``--mode tp --mesh
+   1``: the losses within 1e-5 relative, ms a render and peak memory
+   printed; (e) ``torch_pair_budget_audit.py`` and
+   ``torch_time_to_converge.py`` on that scan, 4 epochs, checkpoints every
+   2, 1 extraction seed: the audit's peak the largest ``pairs=`` of its
+   log, within the budget, no overflow warning; the eval finds every
+   checkpoint, each a row with a finite chamfer or reported without edges
+   (at 4 epochs the recipe's opacities have not started to train, so the
+   extraction's opacity filter keeps none). The kernels line adds the
+   launches of (c)'s and (e)'s training runs as ``launches_harness``.
 
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
@@ -247,6 +270,11 @@ from edgegaussians_tpu_torch.lab.harness import (EPS_T, cuda_ms, log,
                                                  t_out_rel)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(REPO, "scripts"))
+# the harness scripts' kernel counters and device timing, shared here
+from torch_common import (  # noqa: E402
+    kernel_counts, kernel_modules, profiled, queued_ms, reset_kernel_counts,
+    window_counts)
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
 KERNEL_LIBS = ("segpair", "raster_v2", "knn", "pair", "raster_v1",
@@ -276,12 +304,11 @@ KNN_BIG, KNN_BIG_K, KNN_BIG_SAMPLE, KNN_BIG_CHUNK = 131072, 6, 2048, 8192
 # SEG_CHAIN_ALPHA that every pixel walks to the end (0.995^768 > 1e-4):
 # one CTA at the shorter and longer length gives the time a pair adds;
 # the longer at 1, 2 and 4 CTAs an SM shows whether CTAs sharing an SM
-# slow each other. Queued behind a kernel that sleeps QUEUE_SLEEP_CYCLES
-# (~20 ms), so the host's ~20 us a launch hides.
+# slow each other. Queued behind a sleeping kernel (queued_ms: ~20 ms), so
+# the host's ~20 us a launch hides.
 SEG_CHAIN_PAIRS = (64, 768)
 SEG_CHAIN_ALPHA = 0.005
 SEG_CHAIN_CTAS_PER_SM = (1, 2, 4)
-QUEUE_SLEEP_CYCLES = 40_000_000
 ORIENT_EPOCHS = 6
 ORIENT_CUTS = dict(start_ratio_loss_at_epoch=0, start_dir_loss_at_epoch=1)
 WAYWARD_EPOCH = 3
@@ -372,6 +399,23 @@ FLOOR_PROBES = ("roll", "transpose")   # phase 8: timed at their launch floor
 # seg renders device_timer times
 DRYRUN_RANKS = 4
 PROFILED_RENDERS = 10
+# phase 11: the harness scripts (scripts/torch_*.py) as a user runs them,
+# each a process; the epoch A/B's turns and depth, the audit's depth, the
+# time-to-converge's depth and checkpoint interval (the recipe trains
+# opacities from epoch 20, and extraction keeps only those over 0.2: on
+# this scan it first finds edges at epoch 49), the view steps whose host
+# launch records are counted beside profile_train_step's figure
+HARNESS_TIMEOUT = 600
+HARNESS_REPS = 5            # calls a timing block of (a) and (b)
+AB_TURNS, AB_EPOCHS = 2, 6
+AUDIT_EPOCHS = 4
+TTC_EPOCHS, TTC_INTERVAL = 100, 50
+COUNTED_STEPS = 10
+# the JAX profile_train_step.py's keys (:98-149)
+TRAIN_STEP_KEYS = ("proj_grad_ms", "proj_grad_bg_ratio_ms", "adam_ms",
+                   "knn_ms", "dir_loss_ms", "ratio_loss_ms", "geo_adam_ms",
+                   "every5_total_ms", "expected_step_ms",
+                   "expected_in_train_mpx_s")
 
 
 def run(cmd) -> str:
@@ -535,33 +579,6 @@ def time_kernels(calls, n_cases: int, bounds):
         f"(device {ms[fwd][3] + ms[bwd][3]:.4f} ms), plain "
         f"{ms[fwd][1] + ms[bwd][1]:.4f} ms")
     return ms
-
-
-def queued_ms(fn, reps: int) -> float:
-    """Device ms per call of ``fn``: ``reps`` calls queued behind a
-    sleeping kernel, so that they run back to back whatever the host's
-    launch cost (median of 5 blocks). Raises if the host took longer to
-    queue them than the sleep lasted."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        slept, start, stop = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(3))
-        slept.record()
-        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        stop.record()
-        torch.cuda.synchronize()
-        if host_ms >= slept.elapsed_time(start):
-            raise RuntimeError(f"queued_ms: queuing took {host_ms:.3f} ms, "
-                               f"longer than the sleep")
-        times.append(start.elapsed_time(stop) / reps)
-    return float(np.median(times))
 
 
 def chain_case(n_tiles: int, pairs: int, device):
@@ -1693,24 +1710,6 @@ def trace_summary(trace_path: str, view_steps: int) -> str:
             + "; ".join(f"{n[:60]} {d / 1e3:.3f}" for n, d in top))
 
 
-def kernel_modules():
-    """The port's kernel modules, each with its ``launch_counts``."""
-    from edgegaussians_tpu_torch.ops import (
-        knn, pair, rank_sum, raster_v1, raster_v2, segpair, shard_sum)
-    return (segpair, raster_v2, knn, pair, raster_v1, rank_sum, shard_sum)
-
-
-def kernel_launches() -> dict:
-    """Every kernel's launches since the counts were last set to 0."""
-    return {k: v for mod in kernel_modules()
-            for k, v in mod.launch_counts.items()}
-
-
-def reset_launches() -> None:
-    for mod in kernel_modules():
-        mod.reset_launch_counts()
-
-
 def no_launches(**counts):
     """Every kernel's expected launches: 0 unless given."""
     zero = {k: 0 for mod in kernel_modules() for k in mod.launch_counts}
@@ -1760,7 +1759,7 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
     cfg, cfg_path = write_config(tmp, epochs, tag, orient=orient, seed=seed,
                                  training=training, **model)
     captured = io.StringIO()
-    reset_launches()
+    reset_kernel_counts()
     argv = ["--config_file", cfg_path, "--scene_name", scan, "--backend",
             "cuda", "--force_rerun"]
     if profile_dir:
@@ -1770,7 +1769,7 @@ def train_cli_run(tmp: str, scan: str, epochs, tag: str,
                                     else captured):
         rc = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = kernel_launches()
+    launches = kernel_counts()
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
     if profile_dir:
@@ -2784,16 +2783,22 @@ def profiled_device(fn, kernel_name: str, calls: int = 50):
 
     Each window must come after the in-process training phases: on the
     H100 machine, once a window had run before them, every window after
-    them lost device records (39-43 of 50 probe kernels)."""
+    them lost device records (39-43 of 50 probe kernels). A window with
+    fewer kernel records than host launch records (CUPTI drops them now
+    and then) is read again, up to 3 windows; in a traced run every
+    window is short, and the last one's figures are returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        if window_counts(prof.events())[1] is not None:
+            break
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     us = sum(e.self_device_time_total for e in device
@@ -3444,10 +3449,10 @@ def phase_entry(device) -> dict:
     fn, args = graft_entry.entry()
     if args[0].device.type != "cuda":
         raise AssertionError(f"entry() put its arguments on {args[0].device}")
-    reset_launches()
+    reset_kernel_counts()
     img = fn(*args)
     torch.cuda.synchronize()
-    launches = kernel_launches()
+    launches = kernel_counts()
     kernel = segpair.segpair_fwd
     segpair.segpair_fwd = segpair.segpair_fwd_ref
     try:
@@ -3526,12 +3531,12 @@ def phase_sweep(tmp: str) -> dict:
     argv = ["--config_file", cfg_path, "--scene_names", ",".join(scans),
             "--backend", "cuda"]
     captured = io.StringIO()
-    reset_launches()
+    reset_kernel_counts()
     t0 = time.time()
     with contextlib.redirect_stdout(Tee(sys.stdout, captured)):
         rc = sweep.main(argv)
     torch.cuda.synchronize()
-    launches = kernel_launches()
+    launches = kernel_counts()
     wall = time.time() - t0
     if rc != 0:
         raise AssertionError(f"cli.sweep returned {rc}")
@@ -3647,6 +3652,277 @@ def phase_slice_tools(device) -> dict:
     return out
 
 
+def harness(script: str, *args) -> tuple:
+    """``scripts/<script>.py`` with ``args`` as a process, as a user runs
+    it: (its output, its last line as JSON). Raises unless it exits 0
+    within HARNESS_TIMEOUT; the process is stopped on return."""
+    import signal
+    cmd = [sys.executable, os.path.join(REPO, "scripts", f"{script}.py"),
+           *map(str, args)]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=HARNESS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{script} exited {proc.returncode}:\n"
+                             f"{text[-6000:]}")
+    return text, json.loads(text.strip().splitlines()[-1])
+
+
+def timing_line(name: str, t: dict) -> str:
+    dev = t.get("device_ms")
+    return (f"{name}: {t['ms']:.4f} ms, device "
+            + ("-" if dev is None else f"{dev:.4f}") + f" ms "
+            f"({t.get('device_ms_by', '-')}), {t['launches']:.0f} launches, "
+            f"kernels {t['kernels']}")
+
+
+def phase_profile_stages(device) -> dict:
+    """Phase 11a: ``torch_profile_stages.py --fixture`` (800x800, camera
+    0): every stage finite, the seg stages' pair counts those phase 2
+    bins for camera 0, each kernel stage one launch of its kernel a call.
+    Returns the script's JSON."""
+    from torch_profile_stages import STAGE_KERNELS
+
+    from edgegaussians_tpu_torch.ops import tiles
+    log("== phase 11a: scripts/torch_profile_stages.py --fixture, "
+        "stage by stage on the dense two-level path and the seg path")
+    t0 = time.time()
+    _, res = harness("torch_profile_stages", "--fixture", "--reps",
+                     HARNESS_REPS)
+    if not res["finite"]:
+        raise AssertionError("profile_stages: a stage's output is not "
+                             "finite")
+    stages = dict(res["stages"], **res["seg"]["stages"])
+    for name, want in STAGE_KERNELS.items():
+        if stages[name]["kernels"] != want:
+            raise AssertionError(f"profile_stages {name!r}: kernels "
+                                 f"{stages[name]['kernels']} a call, "
+                                 f"expected {want}")
+    cams, w, h, n = fixture_cameras(device)
+    with torch.no_grad():
+        pb = tiles.bin_pairs_frame_order(cams[0][0], w, h, 16, min(768, n),
+                                         49152, max_tiles_per_gaussian=16)
+    want = {"pairs": int(pb.num_pairs), "kept": int(pb.s_f[-1])}
+    got = {k: res["seg"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"profile_stages seg counts {got}, phase 2's "
+                             f"camera 0 {want}")
+    for name, t in stages.items():
+        log(timing_line(name, t))
+    log(f"profile_stages ok in {time.time() - t0:.1f}s: dense pairs "
+        f"{res['pairs']} counts1_sum {res['counts1_sum']} counts2_sum "
+        f"{res['counts2_sum']} trunc {res['trunc']}; seg {got} as phase 2's "
+        "camera 0")
+    return res
+
+
+def view_step_launches(tmp: str, scan: str, device) -> float:
+    """Host kernel launch records a seg main-path view step (the recipe on
+    phase 3's scan, from its initial state), over COUNTED_STEPS steps in
+    one torch.profiler window (torch_common.profiled)."""
+    from edgegaussians_tpu_torch.cli.train import scene_inputs
+    from edgegaussians_tpu_torch.config import load_config
+    from edgegaussians_tpu_torch.train import optim, trainer
+    _, cfg_path = write_config(tmp, EPOCHS, "harness_steps")
+    cfg = load_config(cfg_path)
+    seeds, sc = scene_inputs(cfg, scan)
+    state = trainer.init_train_state(seeds, cfg, device=device)
+    images = torch.from_numpy(np.asarray(sc.images, np.float32)).to(device)
+    masks = images >= cfg.model.edge_detection_threshold
+    vms = torch.from_numpy(np.asarray(sc.viewmats, np.float32)).to(device)
+    Ks = torch.from_numpy(np.asarray(sc.Ks, np.float32)).to(device)
+    pg = trainer.make_proj_grad_fn(cfg, sc.width, sc.height)
+    lrs = optim.all_lrs(cfg.training.optim, 1)
+    views = itertools.count()
+
+    def step():
+        trainer.view_step(state, next(views) % sc.num_views, images, masks,
+                          vms, Ks, proj_grad=pg, lrs=lrs, lambda_proj=1.0,
+                          bg_ratio=1.0, strategy_idx=0,
+                          run_sum=torch.zeros((), device=device))
+
+    step()
+    torch.cuda.synchronize()
+    # this process's earlier traces leave its windows without device
+    # records (section 7 of PERF.md): the host's records alone
+    return profiled(step, COUNTED_STEPS, device_records=False)[0]
+
+
+def phase_profile_train_step(tmp: str, scan: str, device) -> dict:
+    """Phase 11b: ``torch_profile_train_step.py`` at the recipe's 16384
+    capacity: every JAX key finite, the kNN component one ``knn`` launch a
+    call and the direction component one ``rank_sum_gather``; its
+    ``expected_launches_per_step`` printed beside a view step's host
+    launch records (a report, not a gate). Returns the script's JSON."""
+    log("== phase 11b: scripts/torch_profile_train_step.py, the view "
+        "step's components at the recipe's 16384 capacity")
+    t0 = time.time()
+    _, res = harness("torch_profile_train_step", "--reps", HARNESS_REPS)
+    bad = [k for k in TRAIN_STEP_KEYS + ("capacity",)
+           if not isinstance(res.get(k), (int, float))
+           or not math.isfinite(res[k])]
+    if bad or res["capacity"] != 16384:
+        raise AssertionError(f"profile_train_step: keys {bad} missing or "
+                             f"not finite, capacity {res.get('capacity')}")
+    for comp, want in (("knn", {"knn": 1}),
+                       ("dir_loss", {"rank_sum_gather": 1})):
+        if res["kernels"][comp] != want:
+            raise AssertionError(f"profile_train_step {comp}: kernels "
+                                 f"{res['kernels'][comp]} a call, expected "
+                                 f"{want}")
+    for k in TRAIN_STEP_KEYS:
+        stem = k[:-3] if k.endswith("_ms") else None
+        extra = (f", device {res.get(stem + '_device_ms')} ms, "
+                 f"{res.get(stem + '_launches')} launches"
+                 if stem and stem + "_launches" in res else "")
+        log(f"{k} {res[k]}{extra}")
+    log(f"device ms by {res['device_ms_by']}; expected step device "
+        f"{res['expected_step_device_ms']} ms")
+    measured = view_step_launches(tmp, scan, device)
+    log(f"profile_train_step ok in {time.time() - t0:.1f}s: "
+        f"expected_launches_per_step {res['expected_launches_per_step']} "
+        f"(its every-5th block {res['every5_total_launches']}), a seg "
+        f"main-path view step {measured:.1f} host launch records "
+        f"(phase 3's scan, no fired step; a report, not a gate)")
+    res["view_step_launches"] = measured
+    return res
+
+
+def phase_epoch_ab(tmp: str, scan: str) -> dict:
+    """Phase 11c: ``torch_epoch_ab.py --turns AB_TURNS`` on phase 3's scan,
+    cut in depth to AB_EPOCHS epochs: both variants train with finite
+    losses, ``full`` launches the kNN and ``noorient`` does not. Returns
+    the script's JSON."""
+    log(f"== phase 11c: scripts/torch_epoch_ab.py --turns {AB_TURNS} on a "
+        f"{VIEWS}-view 800x800 scan, {AB_EPOCHS} epochs a variant")
+    t0 = time.time()
+    _, res = harness("torch_epoch_ab", "--turns", AB_TURNS, "--epochs",
+                     AB_EPOCHS, "--data_dir", os.path.join(tmp, "data"),
+                     "--scene_name", scan, "--out_root",
+                     os.path.join(tmp, "epoch_ab"))
+    for tag in ("full", "noorient"):
+        ls = res[f"{tag}_losses"]
+        if len(ls) != AB_TURNS * AB_EPOCHS or not all(map(math.isfinite,
+                                                          ls)):
+            raise AssertionError(f"epoch_ab {tag}: losses {ls}")
+    if not res["full_launches"]["knn"] or res["noorient_launches"]["knn"]:
+        raise AssertionError(
+            f"epoch_ab: kNN launches {res['full_launches']['knn']} (full), "
+            f"{res['noorient_launches']['knn']} (noorient)")
+    log(f"epoch_ab ok in {time.time() - t0:.1f}s: every5_block_ms "
+        f"{res['every5_block_ms']}, full {res['t_full_ms_per_view']} ms a "
+        f"view (spread {res['t_full_spread_ms']}), noorient "
+        f"{res['t_noorient_ms_per_view']} (spread "
+        f"{res['t_noorient_spread_ms']}), order {res['order']}, launches "
+        f"full {res['full_launches']}, noorient {res['noorient_launches']}")
+    return res
+
+
+def phase_tp_bench() -> dict:
+    """Phase 11d: ``torch_tp_dtu_bench.py`` at the JAX script's defaults
+    (131072 Gaussians, 1600x1200) in ``--mode ref`` and ``--mode tp --mesh
+    1``, each its own process: the two losses within 1e-5 relative.
+    Returns each mode's JSON."""
+    log("== phase 11d: scripts/torch_tp_dtu_bench.py --mode ref, then "
+        "--mode tp --mesh 1 (131072 Gaussians, 1600x1200)")
+    t0 = time.time()
+    out = {mode: harness("torch_tp_dtu_bench", "--mode", mode,
+                         *(("--mesh", 1) if mode == "tp" else ()))[1]
+           for mode in ("ref", "tp")}
+    a, b = out["ref"]["loss"], out["tp"]["loss"]
+    if not (math.isfinite(a) and abs(a - b) <= 1e-5 * abs(a)):
+        raise AssertionError(f"tp_dtu_bench: loss {a} (ref) against {b} "
+                             "(tp, mesh 1)")
+    for mode, r in out.items():
+        log(f"{r['mode']}: {r['ms_per_render']} ms a render, device "
+            f"{r['device_ms']} ms, {r['launches']} launches, "
+            f"{r['mpx_per_s']} Mpx/s, peak {r['peak_device_mem_gib']} GiB, "
+            f"first render {r['compile_s']} s, loss {r['loss']}")
+    log(f"tp_dtu_bench ok in {time.time() - t0:.1f}s: losses {a} and {b}")
+    return out
+
+
+def phase_audit_ttc(tmp: str, scan: str) -> dict:
+    """Phase 11e: ``torch_pair_budget_audit.py`` and
+    ``torch_time_to_converge.py`` on phase 3's scan with 1 extraction
+    seed, cut in depth to AUDIT_EPOCHS and TTC_EPOCHS epochs: the audit's
+    peak the largest ``pairs=`` of its log, within the budget, no
+    overflow warning; the time-to-converge's eval finding the checkpoints
+    written every TTC_INTERVAL epochs, each a row of ttc_results.json
+    with a finite chamfer. Returns the audit's JSON with the rows."""
+    data, gt = os.path.join(tmp, "data"), os.path.join(tmp, "groundtruth")
+    log(f"== phase 11e: scripts/torch_pair_budget_audit.py and "
+        f"scripts/torch_time_to_converge.py, {AUDIT_EPOCHS} and "
+        f"{TTC_EPOCHS} epochs on a {VIEWS}-view 800x800 scan, 1 extraction "
+        "seed")
+    t0 = time.time()
+    scan_args = ("--data_dir", data, "--scene_name", scan, "--gt_base", gt)
+    text, res = harness("torch_pair_budget_audit", "--epochs", AUDIT_EPOCHS,
+                        "--seeds", 1, "--out_root",
+                        os.path.join(tmp, "audit"), *scan_args)
+    logged = [int(p) for p in re.findall(r"pairs=(\d+)/", text)]
+    if (len(logged) != AUDIT_EPOCHS or res["peak_pairs"] != max(logged)
+            or res["peak_pairs"] > res["budget"]
+            or res["overflow_warnings"] or "exceed tile_pair_budget" in text):
+        raise AssertionError(f"audit: peak {res['peak_pairs']}, the log's "
+                             f"pairs= {logged}, budget {res['budget']}, "
+                             f"{res['overflow_warnings']} warnings")
+    log(f"audit ok: peak {res['peak_pairs']} of budget {res['budget']}, "
+        f"pairs {logged}, train wall {res['wall_s']} s, chamfer "
+        f"{res['chamfer']}, f10 {res['f10']}, launches {res['launches']}")
+    _, cfg_path = write_config(tmp, TTC_EPOCHS, "ttc_recipe")
+    ttc = os.path.join(tmp, "ttc")
+    harness("torch_time_to_converge", "--stage", "train", "--config",
+            cfg_path, "--interval", TTC_INTERVAL, "--out_root", ttc,
+            *scan_args)
+    _, ev = harness("torch_time_to_converge", "--stage", "eval",
+                    "--seeds", 1, "--out_root", ttc, *scan_args)
+    with open(os.path.join(ttc, "ttc_results.json")) as f:
+        rows = json.load(f)
+    want = list(range(TTC_INTERVAL - 1, TTC_EPOCHS, TTC_INTERVAL))
+    if (rows != ev["rows"] or ev["no_edges"]
+            or [r["epoch"] for r in rows] != want
+            or not all(math.isfinite(r["chamfer"]) for r in rows)):
+        raise AssertionError(f"time_to_converge: rows {rows}, no edges at "
+                             f"{ev['no_edges']}, checkpoints expected at "
+                             f"{want}")
+    log(f"time_to_converge ok in {time.time() - t0:.1f}s (with the audit): "
+        f"checkpoints {want}, rows {rows}")
+    res["ttc_rows"] = rows
+    return res
+
+
+def phase_harness(device) -> dict:
+    """Phase 11: the harness scripts on the card, each run as a user runs
+    it; returns the kernel launches of their training runs (the epoch
+    A/B's and the audit's)."""
+    from edgegaussians_tpu_torch.data.synthetic import generate_scene
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        scan = "synth0"
+        generate_scene(tmp, scan, seed=0, n_views=VIEWS, width=800,
+                       height=800)
+        phase_profile_stages(device)
+        phase_profile_train_step(tmp, scan, device)
+        ab = phase_epoch_ab(tmp, scan)
+        phase_tp_bench()
+        audit = phase_audit_ttc(tmp, scan)
+    launches = {}
+    for counts in (ab["full_launches"], ab["noorient_launches"],
+                   audit["launches"]):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 11 ok in {time.time() - t0:.1f}s: launches of its training "
+        f"runs {launches}")
+    return launches
+
+
 def lab_kernel_rows(launches):
     """(name, source, replaced TPU kernel, launches) of the lab's kernels."""
     from edgegaussians_tpu_torch.lab import chunked, probes
@@ -3687,6 +3963,13 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    # the processes started here cache the bytecode Python compiles under
+    # the checkout's build/: where the installation keeps no cache of its
+    # own, each would compile torch's modules anew (~8 s a process on the
+    # card's machine)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(REPO, "build",
+                                                     "pycache")
     card = phase_environment()
     err, ms, bounds = phase_kernels(device)
     err_d, ms_d, bounds_d = phase_dense_kernels(device)
@@ -3753,6 +4036,7 @@ def main() -> int:
     # after phase 8: its profiler windows come after every in-process
     # training run, and phase 10's trace needs no device record
     slice_launches = phase_slice_tools(device)
+    slice_launches["harness"] = phase_harness(device)
     for path, counts in slice_launches.items():
         for name, n in counts.items():
             if n:
