@@ -222,6 +222,31 @@ Phases, in order; any failure exits non-zero:
    (at 4 epochs the recipe's opacities have not started to train, so the
    extraction's opacity filter keeps none). The kernels line adds the
    launches of (c)'s and (e)'s training runs as ``launches_harness``.
+12. The last nine scripts (``scripts/torch_*.py``), each run as a
+   process, its last line read as JSON, (a)-(d) beside (e)-(f): (a)
+   ``torch_scatter_lab.py`` at the JAX lab's shapes (20000 Gaussians,
+   800x800, K1 128, K2 384, t2 625): every variant A-G within 1e-5 of
+   max-abs of A on the masked rows it keeps (E and F drop the valid slots
+   past their compaction caps), the row sum (G) one ``rank_sum`` launch a
+   call and the same bits on two calls; (b) ``torch_segpair_profile.py
+   --variants 0,1,seg --steps 5``: each variant's kernels launched 5
+   times (the single-level frame's ``raster_v2`` for ``0``, the v4 pair
+   kernels for ``1``, the seg kernels for ``seg``; the row sum in each),
+   its op table holding as many kernel records of each, a finite device
+   total; (c) ``torch_profile_sharded_trace.py --steps 5``: the seg
+   kernels in its table, the loss within 1e-5 relative of the unsharded
+   render's; (d) ``torch_pair_kernel_ab.py --epochs 4`` on a scan made as
+   phase 3's: ``dense`` launches ``raster_v2`` (two a view step) and no
+   pair or seg kernel, ``pairk`` the v4 pair kernels, ``segk`` the seg
+   kernels, each epochs x views times; (e) ``torch_scaling_efficiency.py
+   --mesh-sizes 1,2 --steps 1 --ranks_on shared``: every mode's rows
+   finite; (f) ``torch_dup_spread_ab.py --seeds 1`` and
+   ``torch_dp_quality_run.py``, 3 epochs on that scan,
+   ``torch_dtu_spread.py --scenes 1 --epochs 2 --views 4 --width 320
+   --height 240``, then ``torch_spread_synth.py --skip_fit`` over its
+   scene: finite losses, rows with a finite chamfer or reported without
+   edges. The kernels line adds the launches of (d)'s and (f)'s training
+   runs as ``launches_scripts``.
 
 With ``--full``, last: the whole unmodified ``configs/ABC_DexiNed.json``
 (400 epochs) on a 50-view 800x800 synthetic scan made as
@@ -273,7 +298,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.append(os.path.join(REPO, "scripts"))
 # the harness scripts' kernel counters and device timing, shared here
 from torch_common import (  # noqa: E402
-    kernel_counts, kernel_modules, profiled, queued_ms, reset_kernel_counts,
+    KERNEL_SYMBOLS, PROFILED_WINDOWS, kernel_counts, kernel_modules,
+    op_count, profiled, queued_ms, reset_kernel_counts, torchrun,
     window_counts)
 FIXTURE = os.path.join(REPO, "bench_fixture", "abc_00004926.npz")
 RECIPE = os.path.join(REPO, "configs", "ABC_DexiNed.json")
@@ -369,7 +395,6 @@ MULTI_MODEL = dict(dup_high_pos_grads_at_epoch=[1],
 MULTI_BATCH = 2             # view batches of the --mesh_views 2 run
 MULTI_LOSS_RTOL = 2e-3      # epoch losses, multi-rank vs one process
 WORKER = os.path.join(REPO, "scripts", "torch_multiprocess_worker.py")
-RANKS_TIMEOUT = 300
 SHARD_ROWS = 16384          # rows of the probe's shard per rank
 # distinct shards cycled for L2-cold shard-sum calls: 84 MB against the
 # card's 50 MB of L2, so each call's shard was evicted since its last read
@@ -411,6 +436,26 @@ AB_TURNS, AB_EPOCHS = 2, 6
 AUDIT_EPOCHS = 4
 TTC_EPOCHS, TTC_INTERVAL = 100, 50
 COUNTED_STEPS = 10
+# phase 12: the last nine scripts as a user runs them; the per-op traces'
+# steps, the pair-kernel A/B's and the spreads' depths, the DTU spread's
+# cut scene, and what each traced variant launches a step
+SCRIPT_STEPS = 5
+PKA_EPOCHS = 4
+SPREAD_EPOCHS = 3
+DTU_SPREAD = dict(scenes=1, epochs=2, views=4, width=320, height=240)
+SCATTER_TOL = 1e-5          # each variant against A, of A's max-abs
+PROFILE_KERNELS = {
+    "0": {"raster_v2_fwd": 1, "raster_v2_bwd": 1, "rank_sum": 1},
+    "1": {"pair_fwd": 1, "pair_bwd": 1, "rank_sum": 1},
+    "seg": {"segpair_fwd": 1, "segpair_bwd": 1, "rank_sum": 1}}
+# the pair-kernel A/B's variants: the kernels each launches and those it
+# must not
+PKA_KERNELS = {"dense": (("raster_v2_fwd", "raster_v2_bwd"),
+                         ("pair_fwd", "segpair_fwd")),
+               "pairk": (("pair_fwd", "pair_bwd"),
+                         ("segpair_fwd", "raster_v2_fwd")),
+               "segk": (("segpair_fwd", "segpair_bwd"),
+                        ("pair_fwd", "raster_v2_fwd"))}
 # the JAX profile_train_step.py's keys (:98-149)
 TRAIN_STEP_KEYS = ("proj_grad_ms", "proj_grad_bg_ratio_ms", "adam_ms",
                    "knn_ms", "dir_loss_ms", "ratio_loss_ms", "geo_adam_ms",
@@ -2422,29 +2467,6 @@ def phase_view_batch(tmp: str, scan: str):
     return launches, pxs
 
 
-def torchrun(nproc: int, tag: str, args) -> str:
-    """``torch.distributed.run --standalone`` of ``args`` (a script and
-    its arguments, or ``-m`` and a module) on ``nproc`` ranks of this card;
-    returns its output, raises unless it exits 0 within RANKS_TIMEOUT.
-    Every process it starts is stopped on return."""
-    import signal
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), *args]
-    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    try:
-        text, _ = proc.communicate(timeout=RANKS_TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    if proc.returncode != 0:
-        raise AssertionError(f"{tag}: torch.distributed.run exited "
-                             f"{proc.returncode}:\n{text[-6000:]}")
-    return text
-
-
 def run_ranks(nproc: int, tag: str, out: str, cli_argv, dist_backend=None):
     """``scripts/torch_multiprocess_worker.py`` on ``nproc`` ranks of
     this card through :func:`torchrun`: the probe, then the CLI with
@@ -2785,13 +2807,13 @@ def profiled_device(fn, kernel_name: str, calls: int = 50):
     H100 machine, once a window had run before them, every window after
     them lost device records (39-43 of 50 probe kernels). A window with
     fewer kernel records than host launch records (CUPTI drops them now
-    and then) is read again, up to 3 windows; in a traced run every
-    window is short, and the last one's figures are returned."""
+    and then) is read again, up to PROFILED_WINDOWS windows; in a traced
+    run every window is short, and the last one's figures are returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILED_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -2835,7 +2857,8 @@ def profiler_records(fn, kernel_name: str, calls: int) -> tuple:
 
 
 def one_kernel_per_call(fn, kernel_name: str, host_records: bool = False,
-                        calls: int = 50, windows: int = 3) -> tuple:
+                        calls: int = 50,
+                        windows: int = PROFILED_WINDOWS) -> tuple:
     """Device activities per call of ``fn`` and the record counts (host
     launches, host memsets or memcpys, device records of the kernel,
     other device records) of each window read. Raises unless a window
@@ -3898,6 +3921,13 @@ def phase_audit_ttc(tmp: str, scan: str) -> dict:
     return res
 
 
+def add_counts(total: dict, counts: dict) -> dict:
+    """Each kernel's launches of ``counts`` added into ``total``."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
 def phase_harness(device) -> dict:
     """Phase 11: the harness scripts on the card, each run as a user runs
     it; returns the kernel launches of their training runs (the epoch
@@ -3916,9 +3946,238 @@ def phase_harness(device) -> dict:
     launches = {}
     for counts in (ab["full_launches"], ab["noorient_launches"],
                    audit["launches"]):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+        add_counts(launches, counts)
     log(f"phase 11 ok in {time.time() - t0:.1f}s: launches of its training "
+        f"runs {launches}")
+    return launches
+
+
+def table_holds(rows, counts: dict, what: str) -> None:
+    """Each port kernel launched in a traced window (``counts``, by
+    counter) appears in the window's op table with as many kernel records
+    (counters sharing one CUDA symbol add up)."""
+    by_symbol = {}
+    for k, v in counts.items():
+        if v:
+            by_symbol.setdefault(KERNEL_SYMBOLS[k], []).append(k)
+    for symbol, names in by_symbol.items():
+        want = sum(counts[k] for k in names)
+        got = op_count(rows, names[0])
+        if got != want:
+            raise AssertionError(f"{what}: {got} kernel records of {symbol} "
+                                 f"in the table, {want} launches of {names}")
+
+
+def phase_scatter_lab() -> None:
+    """Phase 12a: ``torch_scatter_lab.py`` at its defaults (the JAX lab's
+    scene): every variant within SCATTER_TOL of max-abs of A on the masked
+    rows it keeps (E and F keep the first P2cap / P1cap valid slots), the
+    row sum (G) one kernel a call and the same bits twice."""
+    log("== phase 12a: scripts/torch_scatter_lab.py, the backward-scatter "
+        "variants at the JAX lab's shapes")
+    t0 = time.time()
+    _, res = harness("torch_scatter_lab")
+    for name, row in res["variants"].items():
+        if not row["rel_err"] <= SCATTER_TOL:
+            raise AssertionError(f"scatter_lab {name}: {row['rel_err']:.3g} "
+                                 "of A's max-abs")
+        log(timing_line(f"{name} ({row['label']})", row)
+            + f", err {row['max_err']:.3g} ({row['dropped_rows']} valid "
+            f"rows past its caps), same bits twice {row['repeat_bits']}")
+    g = res["variants"]["G"]
+    if not g["repeat_bits"] or g["kernels"] != {"rank_sum": 1}:
+        raise AssertionError(f"scatter_lab G: same bits twice "
+                             f"{g['repeat_bits']}, kernels {g['kernels']}")
+    log(f"scatter_lab ok in {time.time() - t0:.1f}s: T {res['T']}, rows "
+        f"{res['rows']}, counts1_sum {res['counts1_sum']}, counts2_sum "
+        f"{res['counts2_sum']}")
+
+
+def phase_op_traces() -> None:
+    """Phase 12b-c: ``torch_segpair_profile.py --variants 0,1,seg`` and
+    ``torch_profile_sharded_trace.py``, SCRIPT_STEPS traced steps each:
+    every variant's table holds its own kernels, SCRIPT_STEPS records of
+    each kernel a step launches, and a finite device total; the sharded
+    step's loss within 1e-5 relative of the unsharded render's."""
+    log(f"== phase 12b: scripts/torch_segpair_profile.py --variants 0,1,seg "
+        f"--steps {SCRIPT_STEPS}, then 12c: "
+        "scripts/torch_profile_sharded_trace.py")
+    t0 = time.time()
+    _, res = harness("torch_segpair_profile", "--variants", "0,1,seg",
+                     "--steps", SCRIPT_STEPS)
+    for name, v in res["variants"].items():
+        want = {k: n * SCRIPT_STEPS for k, n in PROFILE_KERNELS[name].items()}
+        if v["kernels"] != want or not (math.isfinite(v["total_device_ms"])
+                                        and v["total_device_ms"] > 0):
+            raise AssertionError(f"segpair_profile {name}: kernels "
+                                 f"{v['kernels']} (expected {want}), device "
+                                 f"{v['total_device_ms']} ms a step")
+        table_holds(v["rows"], v["kernels"], f"segpair_profile {name}")
+        top = ", ".join(f"{r['op'][:40]} {r['ms_per_step']:.4f}"
+                        for r in v["rows"][:4])
+        log(f"variant {name}: {v['ms_per_step']:.2f} ms a step by wall "
+            f"clock, device {v['total_device_ms']:.3f} ms a step over "
+            f"{len(v['rows'])} ops; top: {top}")
+    _, sh = harness("torch_profile_sharded_trace", "--steps", SCRIPT_STEPS)
+    if (sh["kernels"].get("segpair_fwd") != SCRIPT_STEPS
+            or sh["kernels"].get("segpair_bwd") != SCRIPT_STEPS):
+        raise AssertionError(f"sharded trace: kernels {sh['kernels']}")
+    table_holds(sh["rows"], sh["kernels"], "sharded trace")
+    a, b = sh["loss"], sh["unsharded_loss"]
+    if not (math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b)):
+        raise AssertionError(f"sharded trace: loss {a}, unsharded {b}")
+    log(f"op traces ok in {time.time() - t0:.1f}s: sharded step "
+        f"{sh['ms_per_step']:.2f} ms by wall clock, device "
+        f"{sh['total_device_ms']:.3f} ms a step, loss {a} (unsharded {b})")
+
+
+def phase_pair_kernel_ab(tmp: str, scan: str) -> dict:
+    """Phase 12d: ``torch_pair_kernel_ab.py --epochs PKA_EPOCHS`` on a scan
+    made as phase 3's: each variant launches its own compositor,
+    epochs x views times, and none of the others'. Returns its training
+    launches."""
+    log(f"== phase 12d: scripts/torch_pair_kernel_ab.py --epochs "
+        f"{PKA_EPOCHS} on a {VIEWS}-view 800x800 scan")
+    t0 = time.time()
+    _, res = harness("torch_pair_kernel_ab", "--epochs", PKA_EPOCHS,
+                     "--data_dir", os.path.join(tmp, "data"),
+                     "--scene_name", scan, "--out_root",
+                     os.path.join(tmp, "pair_kernel_ab"))
+    launches = {}
+    for tag, (own, others) in PKA_KERNELS.items():
+        got = res[f"{tag}_launches"]
+        per = 2 if tag == "dense" else 1
+        ls = res[f"{tag}_losses"]
+        if (any(got[k] != per * PKA_EPOCHS * VIEWS for k in own)
+                or any(got[k] for k in others)
+                or len(ls) != PKA_EPOCHS or not all(map(math.isfinite, ls))):
+            raise AssertionError(f"pair_kernel_ab {tag}: launches {got}, "
+                                 f"losses {ls}")
+        add_counts(launches, got)
+    log(f"pair_kernel_ab ok in {time.time() - t0:.1f}s: ms a view dense "
+        f"{res['t_dense_ms_per_view']}, pairk "
+        f"{res['t_pair_kernel_ms_per_view']}, segk "
+        f"{res['t_seg_kernel_ms_per_view']} (speedups {res['speedup_pair']}, "
+        f"{res['speedup_seg']}; host-paced)")
+    return launches
+
+
+def phase_scaling() -> None:
+    """Phase 12e: ``torch_scaling_efficiency.py --mesh-sizes 1,2 --steps 1
+    --ranks_on shared``: every mode's rows finite at both sizes."""
+    log("== phase 12e: scripts/torch_scaling_efficiency.py --mesh-sizes "
+        "1,2 --steps 1 --ranks_on shared")
+    t0 = time.time()
+    _, res = harness("torch_scaling_efficiency", "--mesh-sizes", "1,2",
+                     "--steps", 1, "--ranks_on", "shared")
+    for mode, rows in res["modes"].items():
+        if [r["devices"] for r in rows] != [1, 2] or not all(
+                math.isfinite(r[k]) and r[k] > 0 for r in rows
+                for k in ("sec_per_epoch", "px_per_s", "tiles_per_s",
+                          "efficiency_vs_1dev")):
+            raise AssertionError(f"scaling {mode}: rows {rows}")
+        log(f"{mode}: " + "; ".join(
+            f"x{r['devices']} {r['sec_per_epoch'] * 1e3:.1f} ms an epoch, "
+            f"efficiency {r['efficiency_vs_1dev']}" for r in rows))
+    log(f"scaling ok in {time.time() - t0:.1f}s ({res['note']})")
+
+
+def quality_rows(rows, what: str) -> str:
+    """Each row's chamfer and F@10 finite, or both None (no edges found,
+    as phase 11e reports a run without edges)."""
+    out = []
+    for r in rows:
+        c, f = r["chamfer"], r["f10"]
+        if (c is None) != (f is None) or (c is not None and not (
+                math.isfinite(c) and math.isfinite(f))):
+            raise AssertionError(f"{what}: row {r}")
+        out.append("no edges" if c is None else f"chamfer {c:.5f} F@10 "
+                   f"{f:.4f}")
+    return ", ".join(out)
+
+
+def finite_losses(losses, n: int, what: str) -> None:
+    if len(losses) != n or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}, {n} expected")
+
+
+def phase_spreads(tmp: str, scan: str) -> dict:
+    """Phase 12f: ``torch_dup_spread_ab.py --seeds 1`` and
+    ``torch_dp_quality_run.py`` on phase 3's scan, SPREAD_EPOCHS epochs;
+    ``torch_dtu_spread.py`` on one cut DTU-shaped scene, then
+    ``torch_spread_synth.py --skip_fit`` over it: finite losses, rows with
+    a finite chamfer or reported without edges. Returns their training
+    launches."""
+    log(f"== phase 12f: scripts/torch_dup_spread_ab.py --seeds 1 and "
+        f"scripts/torch_dp_quality_run.py ({SPREAD_EPOCHS} epochs), "
+        f"scripts/torch_dtu_spread.py {DTU_SPREAD}, then "
+        "scripts/torch_spread_synth.py --skip_fit")
+    t0 = time.time()
+    scan_args = ("--data_dir", os.path.join(tmp, "data"), "--scene_name",
+                 scan, "--gt_base", os.path.join(tmp, "groundtruth"))
+    launches = {}
+    _, dup = harness("torch_dup_spread_ab", "--seeds", 1, "--epochs",
+                     SPREAD_EPOCHS, "--out_root", os.path.join(tmp, "dup"),
+                     *scan_args)
+    for arm, rows in dup["results"].items():
+        run = dup["runs"][f"{arm}/seed0"]
+        finite_losses(run["losses"], SPREAD_EPOCHS, f"dup_spread_ab {arm}")
+        add_counts(launches, run["launches"])
+        log(f"dup_spread_ab {arm}: {quality_rows(rows, arm)}, "
+            f"{rows[0]['gaussians']} Gaussians")
+    _, dp = harness("torch_dp_quality_run", "--epochs", SPREAD_EPOCHS,
+                    "--seeds", 1, "--out_root", os.path.join(tmp, "dp"), *scan_args)
+    finite_losses(dp["losses"], SPREAD_EPOCHS, "dp_quality_run")
+    add_counts(launches, dp["launches"])
+    log(f"dp_quality_run (batch {dp['batch']}): "
+        f"{quality_rows([dp], 'dp_quality_run')}, wall {dp['wall_s']} s")
+    root = os.path.join(tmp, "dtu_spread")
+    _, dtu = harness("torch_dtu_spread", *itertools.chain.from_iterable(
+        (f"--{k}", v) for k, v in DTU_SPREAD.items()), "--out_root", root)
+    for scan_name, run in dtu["runs"].items():
+        finite_losses(run["losses"], DTU_SPREAD["epochs"], scan_name)
+        add_counts(launches, run["launches"])
+    log(f"dtu_spread: {quality_rows(dtu['rows'], 'dtu_spread')}")
+    with open(dtu["config"]) as f:
+        cfg = json.load(f)
+    out_base = os.path.join(cfg["output"]["output_dir"],
+                            f"{cfg['output']['exp_name']}_PidiNet")
+    _, rows = harness("torch_spread_synth", "--config_file", dtu["config"],
+                      "--gt_base_dir", os.path.join(root, "synthetic_data",
+                                                    "groundtruth"),
+                      "--output_base_dir", out_base, "--skip_fit",
+                      "--scan_names", ",".join(dtu["runs"]))
+    for scan_name, r in rows.items():
+        if not math.isfinite(r["chamfer_dist"]):
+            raise AssertionError(f"spread_synth {scan_name}: {r}")
+    no_edges = [s for s, r in zip(dtu["runs"], dtu["rows"])
+                if r["chamfer"] is None]
+    if sorted(rows) != sorted(set(dtu["runs"]) - set(no_edges)):
+        raise AssertionError(f"spread_synth rows {sorted(rows)}, scans "
+                             f"without edges {no_edges}")
+    log(f"spreads ok in {time.time() - t0:.1f}s: spread_synth rows "
+        + (", ".join(f"{k} chamfer {r['chamfer_dist']:.5f}"
+                     for k, r in rows.items()) or "none")
+        + (f"; without edges {no_edges}" if no_edges else ""))
+    return launches
+
+
+def phase_scripts() -> dict:
+    """Phase 12: the last nine scripts on the card, each run as a user
+    runs it, one after another; returns the kernel launches of their
+    training runs."""
+    from edgegaussians_tpu_torch.data.synthetic import generate_scene
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        scan = "synth0"
+        generate_scene(tmp, scan, seed=0, n_views=VIEWS, width=800,
+                       height=800)
+        phase_scatter_lab()
+        phase_op_traces()
+        launches = phase_pair_kernel_ab(tmp, scan)
+        phase_scaling()
+        add_counts(launches, phase_spreads(tmp, scan))
+    log(f"phase 12 ok in {time.time() - t0:.1f}s: launches of its training "
         f"runs {launches}")
     return launches
 
@@ -4037,6 +4296,7 @@ def main() -> int:
     # training run, and phase 10's trace needs no device record
     slice_launches = phase_slice_tools(device)
     slice_launches["harness"] = phase_harness(device)
+    slice_launches["scripts"] = phase_scripts()
     for path, counts in slice_launches.items():
         for name, n in counts.items():
             if n:

@@ -21,7 +21,14 @@ card:
   fewer kernel records than host launch records;
 - :func:`kernel_counts` and :func:`reset_kernel_counts`: the port's
   kernel counters, which ``chip_smoke.py`` reads too;
-- :func:`train_cli`: the port's training CLI with its output captured.
+- :func:`trace_ops` and :func:`traced_ops`: the per-op table of a
+  torch.profiler Chrome trace (each kernel's device time, its kernel
+  records and the host launch records that started them), the port's
+  counterpart of ``scripts/xplane_top_ops.py``; a window short of kernel
+  records is read again, as :func:`profiled` reads one;
+- :func:`train_cli`: the port's training CLI with its output captured;
+- :func:`torchrun`: ``torch.distributed.run`` of a script on N ranks, as
+  ``chip_smoke.py`` and the multi-rank scripts start them.
 
 Imports nothing of JAX.
 """
@@ -33,10 +40,12 @@ import functools
 import io
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO_ROOT not in sys.path:
@@ -54,13 +63,29 @@ OUT_ROOT = os.path.join(REPO_ROOT, "build", "harness")
 
 BLOCKS = 3                      # timing blocks; the median is reported
 PROFILED_CALLS = 3              # calls in the launch-counting window
-PROFILED_WINDOWS = 3            # windows read before a short one raises
+# windows read before a short one raises: CUPTI drops device records in
+# bursts, up to every record of two windows running on the H100 machine
+PROFILED_WINDOWS = 8
 QUEUED_BLOCKS = 5               # blocks of queued calls; the median
 QUEUE_SLEEP_CYCLES = 40_000_000  # the least sleep calls are queued behind
 # launches queued behind the sleeping kernel at most: a stream holds about
 # a thousand pending launches, past which the host blocks until the
 # device drains them
 QUEUED_LAUNCHES = 512
+RANKS_TIMEOUT = 300             # seconds a torchrun of ranks may take
+# the counter of each kernel wrapper -> the CUDA kernel's symbol in a
+# trace (the seg and v4 pair forwards launch one template, run_fwd_kernel)
+KERNEL_SYMBOLS = {
+    "segpair_fwd": "run_fwd_kernel", "segpair_bwd": "segpair_bwd_kernel",
+    "pair_fwd": "run_fwd_kernel", "pair_bwd": "pair_bwd_kernel",
+    "raster_v2_fwd": "raster_v2_fwd_kernel",
+    "raster_v2_bwd": "raster_v2_bwd_kernel",
+    "raster_v1_fwd": "raster_v1_fwd_kernel",
+    "raster_v1_bwd": "raster_v1_bwd_kernel",
+    "knn": "knn_kernel", "rank_sum": "rank_sum_kernel",
+    "rank_sum_gather": "rank_sum_kernel", "shard_sum": "shard_sum2x_kernel"}
+# the loss each epoch of the trainer's log reports
+EPOCH_LOSS = re.compile(r"^epoch \d+: loss=(\S+)", re.M)
 
 
 def scene_run_dir(cfg, out_root: str, scan: str = SCAN) -> str:
@@ -103,6 +128,20 @@ def extract_and_eval(ply: str, cfg, out_dir: str, scan: str = SCAN,
             out[name].append(metrics_mod.f_score(
                 np.mean(pr[f"precision_{t}"]), np.mean(pr[f"recall_{t}"])))
     return out
+
+
+def epoch_losses(log: str) -> list:
+    """The epoch losses of a training log, in order."""
+    return [float(v) for v in EPOCH_LOSS.findall(log)]
+
+
+def mean_rounded(values, digits: Optional[int] = None):
+    """The mean of ``values`` (rounded to ``digits`` when given), or None
+    where there are none (an extraction that found no edges)."""
+    if not values:
+        return None
+    mean = float(np.mean(values))
+    return mean if digits is None else round(mean, digits)
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -278,6 +317,105 @@ def profiled(fn: Callable, calls: int = PROFILED_CALLS,
                        "windows")
 
 
+def trace_ops(trace) -> Optional[Dict[str, dict]]:
+    """The ops of a torch.profiler Chrome trace (a path, or its loaded
+    JSON): each device kernel's name -> ``us`` (the sum of its kernel
+    records' durations), ``kernels`` (its kernel records) and
+    ``launches`` (the host launch records whose correlation id is one of
+    its kernel records'). None where the trace holds fewer kernel records
+    than host launch records: the profiler lost some, and the window must
+    be read again. Copies and fills are not kernels."""
+    if isinstance(trace, str):
+        with open(trace) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels, launches = [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "kernel":
+            kernels.append(e)
+        elif (e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "LaunchKernel" in e.get("name", "")):
+            launches.append(e)
+    if len(kernels) < len(launches):
+        return None
+    ops, by_corr = {}, {}
+    for e in kernels:
+        row = ops.setdefault(e["name"], {"us": 0.0, "kernels": 0,
+                                         "launches": 0})
+        row["us"] += float(e.get("dur", 0.0))
+        row["kernels"] += 1
+        corr = e.get("args", {}).get("correlation")
+        if corr is not None:
+            by_corr[corr] = e["name"]
+    for e in launches:
+        name = by_corr.get(e.get("args", {}).get("correlation"))
+        if name is not None:
+            ops[name]["launches"] += 1
+    return ops
+
+
+def op_table(ops: Dict[str, dict], steps: int) -> dict:
+    """The op table of :func:`trace_ops`'s ``ops`` over ``steps`` steps:
+    ``rows`` by device time, most first (``ms_per_step``, ``pct`` of the
+    total, ``count`` of kernel records, ``launches``, ``op``) and
+    ``total_device_ms`` a step."""
+    total = sum(r["us"] for r in ops.values())
+    rows = [{"ms_per_step": r["us"] / 1e3 / steps,
+             "pct": 100.0 * r["us"] / max(total, 1e-12),
+             "count": r["kernels"], "launches": r["launches"], "op": name}
+            for name, r in sorted(ops.items(), key=lambda kv: -kv[1]["us"])]
+    return {"rows": rows, "total_device_ms": total / 1e3 / steps}
+
+
+def print_ops(rows: Sequence[dict]) -> None:
+    """An op table's rows as the JAX scripts print theirs."""
+    print(f"{'ms/step':>9} {'%':>5} {'count':>7} {'launch':>7}  op")
+    for r in rows:
+        print(f"{r['ms_per_step']:9.3f} {r['pct']:5.1f} {r['count']:7d} "
+              f"{r['launches']:7d}  {r['op'][:90]}")
+
+
+def op_count(rows: Sequence[dict], kernel: str) -> int:
+    """Kernel records of the port kernel counted as ``kernel`` (a key of
+    :data:`KERNEL_SYMBOLS`) in an op table's rows."""
+    return sum(r["count"] for r in rows
+               if KERNEL_SYMBOLS[kernel] in r["op"])
+
+
+def traced_ops(fn: Callable, steps: int, out_dir: str,
+               device: torch.device):
+    """``steps`` calls of ``fn`` in one torch.profiler window, its Chrome
+    trace written to ``<out_dir>/trace.json`` and read by
+    :func:`trace_ops`: (the ops, wall seconds a step of the window, the
+    port's kernel launches over it). A window short of kernel records is
+    read again, up to PROFILED_WINDOWS times, then raises."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    for _ in range(PROFILED_WINDOWS):
+        reset_kernel_counts()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            if cuda:
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        counts = kernel_counts()
+        prof.export_chrome_trace(path)
+        ops = trace_ops(path)
+        if ops is not None:
+            return ops, wall, counts
+    raise RuntimeError(f"traced_ops: {path} held fewer kernel records than "
+                       f"host launch records in each of {PROFILED_WINDOWS} "
+                       "windows")
+
+
 def measure(fn: Callable, device: torch.device, reps: int = 10):
     """One timing of ``fn``: (the timing, the last call's output). The
     timing holds ``ms`` (CUDA events after a warm call, median of BLOCKS
@@ -348,6 +486,28 @@ def train_cli(cfg_path: str, scan: str, device: torch.device,
     if rc != 0:
         raise RuntimeError(f"cli.train returned {rc}")
     return buf.getvalue(), kernel_counts(), wall
+
+
+def torchrun(nproc: int, tag: str, args, timeout: int = RANKS_TIMEOUT) -> str:
+    """``torch.distributed.run --standalone`` of ``args`` (a script and
+    its arguments, or ``-m`` and a module) on ``nproc`` ranks from the
+    checkout's root; returns its output, raises unless it exits 0 within
+    ``timeout`` seconds. Every process it starts is stopped on return."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *args]
+    proc = subprocess.Popen(cmd, cwd=REPO_ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: torch.distributed.run exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    return text
 
 
 def derive_config(base_config: str, out_root: str, name: str,

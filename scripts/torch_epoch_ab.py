@@ -41,14 +41,13 @@ import re
 import numpy as np
 
 from torch_common import (
-    OUT_ROOT, add_scan_args, card, derive_config, resolve_device,
-    train_cli)
+    OUT_ROOT, add_scan_args, card, derive_config, epoch_losses,
+    resolve_device, train_cli)
 
 from edgegaussians_tpu_torch.config import load_config
 from edgegaussians_tpu_torch.data import parsers
 
 EPOCH_LINE = re.compile(r"^epoch (\d+): .*px/s=([0-9.]+)M", re.M)
-LOSS = re.compile(r"^epoch \d+: loss=(\S+)", re.M)
 
 
 def full(raw):
@@ -75,10 +74,12 @@ def steady_ms(log: str, width: int, height: int):
             if int(epoch) >= 1 and float(rate) > 0]
 
 
-def run_variant(tag: str, epochs: int, out_root: str, config: str,
-                scan: str, device, data_dir=None, turn: int = 0):
-    """Train variant ``tag`` for ``epochs`` epochs: (ms a view of its
-    steady epochs, its kernel launches, its log)."""
+def variant_config(tag: str, variant, epochs: int, out_root: str,
+                   config: str, data_dir=None, turn: int = 0) -> str:
+    """The config of variant ``tag`` (``variant(raw)`` edits it) trained
+    ``epochs`` epochs, every epoch logged and no density event
+    (epoch_ab.py:32-41), written under ``<out_root>/<tag><turn>``; returns
+    its path."""
 
     def mutate(raw):
         raw["training"]["num_epochs"] = epochs
@@ -88,14 +89,65 @@ def run_variant(tag: str, epochs: int, out_root: str, config: str,
                   "cull_gaussians_not_projecting_at_epoch",
                   "reset_opacity_at_epoch"):
             raw["model"][k] = []
-        VARIANTS[tag](raw)
+        variant(raw)
 
-    cfg_path = derive_config(config, os.path.join(out_root, f"{tag}{turn}"),
-                             tag, data_dir, mutate)
+    return derive_config(config, os.path.join(out_root, f"{tag}{turn}"),
+                         tag, data_dir, mutate)
+
+
+def run_variant(tag: str, variant, epochs: int, out_root: str, config: str,
+                scan: str, device, data_dir=None, turn: int = 0):
+    """Train variant ``tag`` (``variant(raw)`` edits the config) for
+    ``epochs`` epochs: (ms a view of its steady epochs, its kernel
+    launches, its log)."""
+    cfg_path = variant_config(tag, variant, epochs, out_root, config,
+                              data_dir, turn)
     cfg = load_config(cfg_path)
     scene = parsers.load_scene(cfg.data, scan)
     log, launches, _ = train_cli(cfg_path, scan, device)
     return steady_ms(log, scene.width, scene.height), launches, log
+
+
+def run_turns(variants: dict, epochs: int, turns: int, out_root: str,
+              config: str, scan: str, device, data_dir=None):
+    """The variants (tag -> edit of the config) in turns, in order on even
+    turns and reversed on odd ones: (each tag's steady epochs' ms a view,
+    its epochs' losses, its kernel launches summed over its runs, the
+    order the runs went in)."""
+    ms = {t: [] for t in variants}
+    losses = {t: [] for t in variants}
+    launches = {t: {} for t in variants}
+    order = []
+    for turn in range(turns):
+        tags = list(variants) if turn % 2 == 0 else list(variants)[::-1]
+        for tag in tags:
+            got, counts, log = run_variant(tag, variants[tag], epochs,
+                                           out_root, config, scan, device,
+                                           data_dir, turn)
+            ms[tag] += got
+            losses[tag] += epoch_losses(log)
+            for k, v in counts.items():
+                launches[tag][k] = launches[tag].get(k, 0) + v
+            order.append(tag)
+    return ms, losses, launches, order
+
+
+def median_ms(values) -> float:
+    return float(np.median(values)) if values else float("nan")
+
+
+def per_variant(ms, losses, launches) -> dict:
+    """Each variant's steady epochs, their spread, its losses and its
+    kernel launches, under the keys the output adds to the JAX ones."""
+    out = {}
+    for tag in ms:
+        out[f"t_{tag}_spread_ms"] = ([round(min(ms[tag]), 3),
+                                      round(max(ms[tag]), 3)]
+                                     if ms[tag] else None)
+        out[f"{tag}_epoch_ms"] = [round(v, 3) for v in ms[tag]]
+        out[f"{tag}_losses"] = losses[tag]
+        out[f"{tag}_launches"] = launches[tag]
+    return out
 
 
 def epoch_ab(epochs: int, turns: int, out_root: str, config: str, scan: str,
@@ -103,37 +155,16 @@ def epoch_ab(epochs: int, turns: int, out_root: str, config: str, scan: str,
     """The variants A B B A ... for ``turns`` turns; the JAX script's keys
     and, per variant, its steady epochs' ms, their spread, its epochs'
     losses and its kernel launches."""
-    ms = {t: [] for t in VARIANTS}
-    losses = {t: [] for t in VARIANTS}
-    launches = {t: {} for t in VARIANTS}
-    order = []
-    for turn in range(turns):
-        tags = list(VARIANTS) if turn % 2 == 0 else list(VARIANTS)[::-1]
-        for tag in tags:
-            got, counts, log = run_variant(tag, epochs, out_root, config,
-                                           scan, device, data_dir, turn)
-            ms[tag] += got
-            losses[tag] += [float(v) for v in LOSS.findall(log)]
-            for k, v in counts.items():
-                launches[tag][k] = launches[tag].get(k, 0) + v
-            order.append(tag)
-
-    def med(tag):
-        return float(np.median(ms[tag])) if ms[tag] else float("nan")
-
-    t_a, t_b = med("full"), med("noorient")
+    ms, losses, launches, order = run_turns(VARIANTS, epochs, turns,
+                                            out_root, config, scan, device,
+                                            data_dir)
+    t_a, t_b = median_ms(ms["full"]), median_ms(ms["noorient"])
     out = {
         "t_full_ms_per_view": round(t_a, 3),
         "t_noorient_ms_per_view": round(t_b, 3),
         "every5_block_ms": round((t_a - t_b) * 5, 3),
         "note": "every5 = kNN + dir + ratio + 2 geo-Adam, in-program"}
-    for tag in VARIANTS:
-        out[f"t_{tag}_spread_ms"] = ([round(min(ms[tag]), 3),
-                                      round(max(ms[tag]), 3)]
-                                     if ms[tag] else None)
-        out[f"{tag}_epoch_ms"] = [round(v, 3) for v in ms[tag]]
-        out[f"{tag}_losses"] = losses[tag]
-        out[f"{tag}_launches"] = launches[tag]
+    out.update(per_variant(ms, losses, launches))
     out.update(turns=turns, order=order, platform=card())
     return out
 
