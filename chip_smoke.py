@@ -54,11 +54,18 @@ Phases, in order; any failure exits non-zero:
    the -1e30 marker) against the marked ones it skips, and the longest
    row's live count.
    2 (rank_sum): the deterministic row sum of the compositors' backwards
-   on each fixture camera's seg backward rows and on rows at the seg main
-   path's size: bit for bit the CPU plain version's, two launches
-   bit-equal, within the gradient gate of the plain version on the card
-   (index_add_ atomics), timed beside that index_add_ alone (events and
-   device time, the sort and the sum kernel apart).
+   (``csrc/rank_sum.cu``: count, alloc, fill and an in-order sum a key,
+   four launches) on each fixture camera's seg backward rows, on rows at
+   the seg main path's size, on the gather's backward at phase 5's shape
+   (its all-zero rows dropped, a few NaN rows kept) and on edge cases (one
+   key of 5000 rows, runs of ~130, one output, every row dropped, no
+   rows): bit for bit the CPU plain version's (NaN outputs as NaN), two
+   launches bit-equal, within the gradient gate of the plain version on
+   the card (index_add_ atomics), timed at the first three sizes beside
+   that index_add_ alone (events and device time). After phase 8, in a
+   torch.profiler window of each job (the fixture cameras' rows; the
+   gather case), its launches a call on the host's records (at most 4, no
+   fill or copy) and each of its four stages' device time.
    2b: the whole rasterizer on the GPU against the CPU path on a small
    scene, through the seg, two-level and single-level dispatch, the v4
    pair path, the v1 single-level path and the pair-prefix two-level
@@ -348,8 +355,11 @@ DET_STEP = VIEWS + 3
 # ratio branch both fire, run twice from the same state
 ORIENT_DET_STEP = (ORIENT_CUTS["start_dir_loss_at_epoch"] + 1) * VIEWS + 4
 # phase 2 (rank_sum) at the seg main path's size: the recipe's pair budget
-# and capacity, ~6.2k valid pairs over the 2500 Gaussians of its seed
+# and capacity, ~6.2k valid pairs over the 2500 Gaussians of its seed; its
+# gather case's share of dead query rows (phase 5's fired step: 13884 of
+# 16384)
 MAIN_PAIRS, MAIN_GAUSSIANS = 6200, 2500
+RANK_SUM_DEAD = 0.85
 # forward image: both sides take the same f32 steps per pixel; only the
 # order of the log-alpha sum (FMA chain vs matmul) and of the
 # transmittance products (sequential vs cumprod scan) differ
@@ -1286,11 +1296,17 @@ def phase_pair_chain(cases, basis, device_ms: dict) -> None:
 
 
 def rank_sum_cases(device):
-    """(name, rows [B,10], idx [B], n, valid [B]) of the row sum: each
-    fixture camera's seg backward rows (budget 49152, ~33k valid pairs of
-    12740 Gaussians, dfeats from the seg kernel) and one at the seg main
-    path's size (the same budget and the recipe's capacity 16384, ~6.2k
-    valid pairs over the 2500 Gaussians of its seed; seeded rows)."""
+    """(name, rows [B,C], idx [B], n, valid [B] or None, gather) of the row
+    sum: each fixture camera's seg backward rows (budget 49152, ~33k valid
+    pairs of 12740 Gaussians, dfeats from the seg kernel); one at the seg
+    main path's size (the same budget and the recipe's capacity 16384,
+    ~6.2k valid pairs over the 2500 Gaussians of its seed; seeded rows);
+    the gather's backward at phase 5's shape (``gather``: 16384 query rows
+    x 5 neighbours of 3 columns into 16384, RANK_SUM_DEAD of the query
+    rows' cotangents +0 or -0, as the dead rows give, a few rows NaN); and
+    seeded edge cases: one key of 5000 rows (sorted in the global
+    workspace), runs of ~130 rows (in shared memory), one output, every
+    row dropped, no rows."""
     from edgegaussians_tpu_torch.ops import segpair
     cases, basis = seg_cases(device)
     out = []
@@ -1305,75 +1321,120 @@ def rank_sum_cases(device):
                                                    cs["oy"], dfe)
             rows = torch.cat([dsrc, dsrc[:, 3:5].abs()], -1).contiguous()
             out.append((f"camera {c}", rows, pb.pair_ranks, cs["n"],
-                        pb.pair_valid))
+                        pb.pair_valid, False))
     gen = torch.Generator(device=device).manual_seed(12)
-    idx = torch.randint(0, MAIN_GAUSSIANS, (BUDGET,), generator=gen,
-                        device=device)
-    rows = torch.randn((BUDGET, 10), generator=gen, device=device)
+
+    def seeded(b, n, c=10):
+        return (torch.randn((b, c), generator=gen, device=device),
+                torch.randint(0, n, (b,), generator=gen, device=device))
+    rows, idx = seeded(BUDGET, MAIN_GAUSSIANS)
     valid = torch.arange(BUDGET, device=device) < MAIN_PAIRS
-    out.append(("main path", rows, idx, KNN_CAPACITY, valid))
+    out.append(("main path", rows, idx, KNN_CAPACITY, valid, False))
+    m = 5
+    rows, idx = seeded(KNN_CAPACITY * m, KNN_CAPACITY, 3)
+    dead = (torch.rand(KNN_CAPACITY, generator=gen, device=device)
+            < RANK_SUM_DEAD).repeat_interleave(m)
+    sign = torch.rand(rows.shape, generator=gen, device=device) < 0.5
+    rows[dead] = torch.where(sign, 0.0, -0.0)[dead]
+    rows[torch.randint(0, rows.shape[0], (7,), generator=gen,
+                       device=device), 1] = float("nan")
+    out.append(("gather", rows, idx, KNN_CAPACITY, None, True))
+    for name, b, n, one_key, drop in (
+            ("one key of 5000 rows", 5000, 64, 17, 0.0),
+            ("runs of ~130 rows", 6000, 36, None, 0.2),
+            ("one output", 3000, 1, None, 0.2),
+            ("every row dropped", 2000, 100, None, 1.0),
+            ("no rows", 0, 16, None, 0.2)):
+        rows, idx = seeded(b, n)
+        if one_key is not None:
+            idx.fill_(one_key)
+        valid = torch.rand(b, generator=gen, device=device) >= drop
+        out.append((name, rows, idx, n, valid, False))
     return out
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` bit for bit, but where both are NaN: the card's adds
+    give the canonical NaN, the CPU's keep the payload of the NaN they
+    add."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(bits(a[~nan]), bits(b[~nan])))
+
+
 def phase_rank_sum(device):
-    """Phase 2 (rank_sum): the row sum of the compositors' backwards
-    against its plain version (bit for bit against the CPU's, within the
-    gradient gate against the card's index_add_ atomics), two launches
-    bit-equal, then its time beside the index_add_ it replaced, at the
-    fixture's and the seg main path's sizes."""
+    """Phase 2 (rank_sum): the row sum of the compositors' backwards and
+    of the gather's backward against its plain version (bit for bit
+    against the CPU's, NaN as NaN; within the gradient gate against the
+    card's index_add_ atomics), two launches bit-equal, on every case of
+    rank_sum_cases; then, at the fixture's, the seg main path's and the
+    gather's sizes, its time beside the index_add_ it replaced and its
+    bound (its stages' device times come after phase 8, from
+    rank_sum_stages). Returns the kernels line's figures of ``rank_sum``
+    (per fixture camera) and its extra keys."""
     from edgegaussians_tpu_torch.ops import rank_sum as rs
     log("== phase 2 (rank_sum): the deterministic row sum vs its plain "
         "version and index_add_")
-    cases = rank_sum_cases(device)
     err = 0.0
     times = {}
-    for name, rows, idx, n, valid in cases:
+    for name, rows, idx, n, valid, gather in rank_sum_cases(device):
+        if gather:
+            def call():
+                return rs.gather_backward(rows, idx, n)
+        else:
+            def call():
+                return rs.rank_sum(rows, idx, n, valid)
         with torch.no_grad():
-            got = rs.rank_sum(rows, idx, n, valid)
-            again = rs.rank_sum(rows, idx, n, valid)
+            got, again = call(), call()
             plain = rs.rank_sum_ref(rows, idx, n, valid)
-            cpu = rs.rank_sum_ref(rows.cpu(), idx.cpu(), n, valid.cpu())
+            cpu = rs.rank_sum_ref(rows.cpu(), idx.cpu(), n,
+                                  None if valid is None else valid.cpu())
             torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        if not torch.equal(bits(got), bits(again)):
             raise AssertionError(f"rank_sum {name}: two launches differ")
-        if not torch.equal(got.cpu().view(torch.int32),
-                           cpu.view(torch.int32)):
+        if not same_bits(got, cpu):
             raise AssertionError(f"rank_sum {name}: not the CPU plain "
                                  "version's bits")
-        rel = rel_err(got, plain, f"rank_sum {name}")
-        err = max(err, (got - plain).abs().max().item())
-        keys = torch.where(valid, idx, torch.full_like(idx, n))
-        keys32, perm = torch.sort(keys.to(torch.int32), stable=True)
-        acc = torch.zeros((n + 1, 10), device=device)
-        out = torch.zeros((n, 10), device=device)
-        # what the sum needs: the mask, each valid row and its index
-        # (dropped rows are never read), the [n, C] output; one add a
-        # valid element
-        nv = int(valid.sum())
+        nan = int(torch.isnan(got).sum())
+        finite = ~torch.isnan(plain)
+        rel = (rel_err(got[finite], plain[finite], f"rank_sum {name}")
+               if n and rows.shape[0] else 0.0)
+        if n and rows.shape[0] and not gather:
+            err = max(err, (got - plain).abs().max().item())
+        mask = valid if valid is not None else rs.nonzero_rows(rows)
+        kept = int(mask.sum())
+        runs = rs.rank_sum_ref(torch.ones_like(rows[:, :1]), idx, n, mask)
+        longest = int(runs.max()) if n else 0
+        log(f"rank_sum {name}: {rows.shape[0]} rows of {rows.shape[1]}, "
+            f"{kept} kept, n {n}, longest run {longest}: bit-equal to the "
+            f"CPU plain version (NaN outputs {nan}) and on two launches, "
+            f"rel err {rel:.3g}")
+        if not (name.startswith("camera") or name in ("main path",
+                                                      "gather")):
+            continue
+        keys = idx if valid is None else torch.where(valid, idx, n)
+        acc = torch.zeros((n + 1, rows.shape[1]), device=device)
+        # what the sum needs: the mask, each kept row and its index, the
+        # [n, C] output (the gather's: every row, read to find the zero
+        # ones, and the kept rows' indices); one add a kept element
         width = rows.shape[1]
-        nbytes = (nv * (width * rows.element_size() + idx.element_size())
-                  + valid.numel() * valid.element_size() + n * width * 4)
-        t = {"kernel": cuda_ms(lambda: rs.rank_sum(rows, idx, n, valid),
-                               20),
+        nbytes = (kept * idx.element_size() + n * width * 4
+                  + (rows.numel() * 4 if gather
+                     else kept * width * 4 + valid.numel()))
+        t = {"kernel": cuda_ms(call, 20),
              "plain": cuda_ms(lambda: rs.rank_sum_ref(rows, idx, n, valid),
                               20),
              "library": cuda_ms(lambda: acc.index_add_(0, keys, rows), 20),
-             "kernel_dev": queued_ms(
-                 lambda: rs.rank_sum(rows, idx, n, valid), 20),
-             "sum_only_dev": queued_ms(
-                 lambda: rs.launch_sum(rows, keys32, perm, n, out), 20),
+             "kernel_dev": queued_ms(call, 20),
              "library_dev": queued_ms(
                  lambda: acc.index_add_(0, keys, rows), 20),
-             "bound": bound_ms(nbytes, nv, (width, 0))}
+             "bound": bound_ms(nbytes, kept, (width, 0))}
         times[name] = t
-        log(f"rank_sum {name}: {rows.shape[0]} rows, {int(valid.sum())} "
-            f"valid, n {n}: rel err {rel:.3g}, bit-equal to the CPU plain "
-            f"version; wrapper {t['kernel']:.4f} ms (device "
-            f"{t['kernel_dev']:.4f}: sort + sum; the sum kernel alone "
-            f"{t['sum_only_dev']:.4f}), plain {t['plain']:.4f} ms, "
-            f"index_add_ {t['library']:.4f} ms "
-            f"(device {t['library_dev']:.4f}), bound {t['bound'][0]:.4f} ms "
-            f"({t['bound'][1]})")
+        log(f"rank_sum {name}: wrapper {t['kernel']:.4f} ms (device "
+            f"{t['kernel_dev']:.4f}), plain {t['plain']:.4f} ms, index_add_ "
+            f"{t['library']:.4f} ms (device {t['library_dev']:.4f}), bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
     cams = [t for name, t in times.items() if name.startswith("camera")]
 
     def mean(key):
@@ -1386,7 +1447,74 @@ def phase_rank_sum(device):
         f"bound {bound:.4f} ms")
     ms = {"rank_sum": (mean("kernel"), mean("plain"), mean("library"),
                        mean("kernel_dev"))}
-    return {"rank_sum": err}, ms, bounds
+    extra = {"at": {name: {"device_ms": t["kernel_dev"],
+                           "index_add_device_ms": t["library_dev"],
+                           "bound_ms": t["bound"][0]}
+                    for name, t in times.items()
+                    if not name.startswith("camera")}}
+    return {"rank_sum": err}, ms, bounds, extra
+
+
+def rank_sum_stages(device) -> dict:
+    """Per job of the row sum, from torch.profiler windows of 20 calls (the
+    5 fixture cameras' rows 4 times; phase 2's gather case): the host's
+    kernel launch records a call (at most 4, and no memset or memcpy) and
+    each stage's device time a call, the kernel records' durations (no
+    record of another kernel may come through). A window short of stage
+    records is read again, up to PROFILED_WINDOWS windows; the stage times
+    are then None (a traced run, whose windows all lose records). After
+    phase 8: a profiler window before the in-process training phases makes
+    every later window lose device records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    cases = rank_sum_cases(device)
+    cams = [c for c in cases if c[0].startswith("camera")]
+    _, g_rows, g_idx, g_n, _, _ = next(c for c in cases if c[0] == "gather")
+    jobs = {"rank_sum": (lambda: [rs.rank_sum(r, i, n, v)
+                                  for _, r, i, n, v, _ in cams], len(cams)),
+            "rank_sum_gather": (lambda: rs.gather_backward(g_rows, g_idx,
+                                                           g_n), 1)}
+    out = {}
+    for job, (fn, per) in jobs.items():
+        reps = 20 // per
+        calls = reps * per
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(PROFILED_WINDOWS):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            host = [e.name for e in prof.events()
+                    if e.device_type != DeviceType.CUDA]
+            launches = sum("LaunchKernel" in e for e in host)
+            moves = sum("Memset" in e or "Memcpy" in e for e in host)
+            dev = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            other = [e.name for e in dev
+                     if not any(k in e.name for k in rs.STAGES)]
+            if launches > 4 * calls or moves or other:
+                raise AssertionError(
+                    f"{job}: {launches} host launch records, {moves} "
+                    f"memset or memcpy records, other device records "
+                    f"{other[:3]} over {calls} calls")
+            us = {k: [e.time_range.elapsed_us() for e in dev if k in e.name]
+                  for k in rs.STAGES}
+            if all(len(v) == calls for v in us.values()):
+                break
+        stages = {k.split("_")[2]: (sum(v) / calls / 1e3
+                                    if len(v) == calls else None)
+                  for k, v in us.items()}
+        out[job] = {"launches_a_call": launches / calls,
+                    "stage_device_ms": stages}
+        log(f"{job}: {launches / calls:g} kernel launches a call (host "
+            "records), no fill or copy; device ms a call by stage "
+            + ", ".join(f"{k} " + ("lost" if t is None else f"{t:.4f}")
+                        for k, t in stages.items()))
+    return out
 
 
 def v1_cases(device):
@@ -4015,9 +4143,14 @@ def phase_op_traces() -> None:
         table_holds(v["rows"], v["kernels"], f"segpair_profile {name}")
         top = ", ".join(f"{r['op'][:40]} {r['ms_per_step']:.4f}"
                         for r in v["rows"][:4])
+        sorts = sum(r["ms_per_step"] for r in v["rows"]
+                    if "radixSort" in r["op"] or "RadixSort" in r["op"])
         log(f"variant {name}: {v['ms_per_step']:.2f} ms a step by wall "
             f"clock, device {v['total_device_ms']:.3f} ms a step over "
-            f"{len(v['rows'])} ops; top: {top}")
+            f"{len(v['rows'])} ops; top: {top}; port kernels' device ms a "
+            "step " + ", ".join(f"{k} {ms:.4f}"
+                                for k, ms in v["kernel_ms"].items())
+            + f"; radix sorts {sorts:.4f}")
     _, sh = harness("torch_profile_sharded_trace", "--steps", SCRIPT_STEPS)
     if (sh["kernels"].get("segpair_fwd") != SCRIPT_STEPS
             or sh["kernels"].get("segpair_bwd") != SCRIPT_STEPS):
@@ -4236,15 +4369,20 @@ def main() -> int:
     ms.update(ms_d)
     bounds.update(bounds_d)
     err["knn"], ms["knn"], bounds["knn"] = phase_knn_kernel(device)
-    for phase in (phase_pair_kernels, phase_v1_kernels, phase_rank_sum):
+    for phase in (phase_pair_kernels, phase_v1_kernels):
         err_p, ms_p, bounds_p = phase(device)
         err.update(err_p)
         ms.update(ms_p)
         bounds.update(bounds_p)
+    err_p, ms_p, bounds_p, rank_extra = phase_rank_sum(device)
+    err.update(err_p)
+    ms.update(ms_p)
+    bounds.update(bounds_p)
     phase_whole_path(device)
     band_launches = phase_band_mode(device)
     err["shard_sum"], ms["shard_sum"], bounds["shard_sum"], extra = \
         phase_shard_sum_kernel(device)
+    extra.setdefault("rank_sum", {}).update(rank_extra)
     from edgegaussians_tpu_torch.data.synthetic import generate_scene
     with tempfile.TemporaryDirectory() as tmp:
         scan = "synth0"
@@ -4292,6 +4430,8 @@ def main() -> int:
     bounds.update(bounds_l)
     for name, keys in extra_l.items():
         extra.setdefault(name, {}).update(keys)
+    for name, keys in rank_sum_stages(device).items():
+        extra.setdefault(name, {}).update(keys)
     # after phase 8: its profiler windows come after every in-process
     # training run, and phase 10's trace needs no device record
     slice_launches = phase_slice_tools(device)
@@ -4329,7 +4469,7 @@ def main() -> int:
              "edgegaussians_tpu/ops/pallas_raster.py:97",
              others["single_v1"][0]),
             ("rank_sum", rank_sum.KERNEL_SOURCE,
-             "edgegaussians_tpu/ops/composite.py:136 (_scatter_rows: an "
+             "edgegaussians_tpu/ops/composite.py:138 (_scatter_rows: an "
              "XLA scatter-add, no Pallas kernel)", seg_launches),
             ("rank_sum_gather", rank_sum.KERNEL_SOURCE,
              "edgegaussians_tpu/models/losses.py:154 (the backward of the "

@@ -7,7 +7,7 @@ rank: ``ops/segpair.py`` (the seg and v4 pair paths), and
 the backward of the direction loss's neighbour gather (:func:`gather_rows`,
 ``models/losses.py``), whose autograd form adds with atomics across
 threads on the CPU and in another order on every launch on the card. The JAX
-package does it with ``_scatter_rows`` (composite.py:140-186), an XLA
+package does it with ``_scatter_rows`` (composite.py:138), an XLA
 scatter-add that is deterministic on the TPU. A float ``index_add_`` on
 CUDA is not: its atomics add in another order on every launch, so the
 same training run on the card parts ways from its first view step.
@@ -17,21 +17,23 @@ order, which is what ``index_add_`` does on the CPU, and gives the same
 bits on every launch. Two implementations, chosen by the device of the
 input:
 
-- ``csrc/rank_sum.cu`` for CUDA tensors: the keys sorted by a stable sort
-  (``torch.sort``), then one kernel whose thread at the head of each key's
-  run walks the run in order. :func:`rank_sum` launches it or raises; each
-  launch adds one to ``launch_counts``.
+- ``csrc/rank_sum.cu`` for CUDA tensors: a counting sort over the keys'
+  known range [0, n) in four launches (count, alloc, fill, then a sum
+  that puts each key's rows back in row order and adds them: a lane a
+  key of up to 8 rows, a warp a longer one), with integer atomics only
+  and a workspace kept per stream. :func:`rank_sum` launches
+  it or raises; each call adds one to ``launch_counts``.
 - :func:`rank_sum_ref`, one ``index_add_`` into a zero block with a drop
   row, for CPU tensors (where it adds in row order, so it gives the
   kernel's bits), and the yardstick the kernel is held to on the card.
 
 :func:`gather_rows` is ``x[idx]`` whose backward, :func:`gather_backward`,
 is the row sum of the cotangent's rows by the flattened ``idx``. On the
-card it drops the rows that are all zeros before it sorts: adding a +0 or
--0 row never changes a sum that starts at +0, so the bits are those of
-the whole sum, and the direction loss's dead query rows (whose cotangents
-are zeros, and whose neighbours are the same few live rows) add no runs
-of thousands of rows for one thread each to walk. It counts its launches
+card the kernel drops the rows that are all zeros: adding a +0 or -0 row
+never changes a sum that starts at +0, so the bits are those of the whole
+sum, and the direction loss's dead query rows (whose cotangents are
+zeros, and whose neighbours are the same few live rows) add no runs of
+thousands of rows for one warp each to sort. It counts its launches
 apart (``launch_counts["rank_sum_gather"]``).
 
 Dropped rows (``valid`` False, or the index ``n``) add nowhere. The
@@ -49,16 +51,25 @@ import torch
 from edgegaussians_tpu_torch.ops import _build
 
 KERNEL_SOURCE = "edgegaussians_tpu_torch/csrc/rank_sum.cu"
+# the kernels of one call, in launch order (fill only where there are
+# rows)
+STAGES = ("rank_sum_count_kernel", "rank_sum_alloc_kernel",
+          "rank_sum_fill_kernel", "rank_sum_sum_kernel")
 
-# Launches of the kernel since the last reset_launch_counts(), by the job
-# that launched it: the compositors' row sums (rank_sum) and the gather's
-# backward (gather_backward); only launch_sum adds to them.
+# Calls of the kernels since the last reset_launch_counts(), by the job
+# that called them: the compositors' row sums (rank_sum) and the gather's
+# backward (gather_backward); only launch() adds to them.
 launch_counts = {"rank_sum": 0, "rank_sum_gather": 0}
 
-# rows, keys, perm; b, n, c; out, stream
-_ARGTYPES = ((ctypes.c_void_p,) * 3
-             + (ctypes.c_int64, ctypes.c_int, ctypes.c_int)
-             + (ctypes.c_void_p, ctypes.c_void_p))
+# rows, idx, idx64, valid, drop_zero; b, n, c; out; keys, list, tmp, cnt,
+# seg, cur, big, total; stream
+_ARGTYPES = ((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+              ctypes.c_int) + (ctypes.c_void_p,) * 10)
+
+# (device index, stream handle) -> the workspace of csrc/rank_sum.cu: one
+# per stream, as two streams' calls may run at once
+_workspaces = {}
 
 
 def reset_launch_counts() -> None:
@@ -79,11 +90,22 @@ def rank_sum(rows: torch.Tensor, idx: torch.Tensor, n: int,
              job: str = "rank_sum") -> torch.Tensor:
     """``rows [B,C]`` f32 added by ``idx [B]`` (int, in [0, n]) into
     ``[n,C]``, each output row's rows in row order. Rows where ``valid``
-    [B] is False, or whose index is ``n``, are dropped. CUDA tensors sort
-    the keys and launch the kernel, counted under ``job``; CPU tensors
-    take :func:`rank_sum_ref`."""
+    [B] is False, or whose index is ``n``, are dropped. CUDA tensors
+    launch the kernel, counted under ``job``; CPU tensors take
+    :func:`rank_sum_ref`."""
     if rows.device.type == "cpu":
         return rank_sum_ref(rows, idx, n, valid)
+    return launch(rows, idx, n, valid, job)
+
+
+def launch(rows: torch.Tensor, idx: torch.Tensor, n: int,
+           valid: Optional[torch.Tensor] = None, job: str = "rank_sum",
+           drop_zero_rows: bool = False) -> torch.Tensor:
+    """The kernel's call on CUDA tensors, as :func:`rank_sum` and
+    :func:`gather_backward` make it: ``rows [B,C]`` f32 (contiguous),
+    ``idx [B]`` int64 or int32, ``valid [B]`` bool or None; with
+    ``drop_zero_rows`` the rows that are all +0 or -0 are dropped too.
+    Adds one to ``launch_counts[job]``."""
     if rows.device.type != "cuda":
         raise ValueError(f"no rank_sum kernel for device {rows.device}")
     if rows.dim() != 2 or idx.shape != rows.shape[:1]:
@@ -91,31 +113,64 @@ def rank_sum(rows: torch.Tensor, idx: torch.Tensor, n: int,
                          f"{tuple(rows.shape)} and {tuple(idx.shape)}")
     if rows.dtype != torch.float32:
         raise TypeError(f"rows: expected torch.float32, got {rows.dtype}")
+    if idx.dtype not in (torch.int64, torch.int32):
+        raise TypeError(f"idx: expected torch.int64 or torch.int32, got "
+                        f"{idx.dtype}")
     if not rows.is_contiguous():
         raise ValueError("rows must be contiguous")
+    if valid is not None:
+        if valid.dtype != torch.bool:
+            raise TypeError(f"valid: expected torch.bool, got {valid.dtype}")
+        if valid.shape != idx.shape:
+            raise ValueError(f"valid: expected shape {tuple(idx.shape)}, "
+                             f"got {tuple(valid.shape)}")
     if idx.device != rows.device or (valid is not None
                                      and valid.device != rows.device):
         raise ValueError(f"all inputs must be on {rows.device}")
-    if n >= 2 ** 31 - 1:
-        raise ValueError(f"{n} output rows do not fit the int32 keys")
-    keys, perm = torch.sort(_keys(idx, n, valid).to(torch.int32),
-                            stable=True)
-    out = torch.zeros((n, rows.shape[1]), dtype=torch.float32,
-                      device=rows.device)
-    launch_sum(rows, keys, perm, n, out, job)
+    b, c = rows.shape
+    if n >= 2 ** 30 or b >= 2 ** 31:
+        raise ValueError(f"{b} rows into {n} outputs do not fit the "
+                         "kernel's int32 keys and row lists")
+    out = torch.empty((n, c), dtype=torch.float32, device=rows.device)
+    if n == 0 or c == 0:
+        return out
+    idx = idx.contiguous()
+    if valid is not None:
+        valid = valid.contiguous()
+    stream = _build.stream(rows.device)
+    ws = _workspace(rows.device, stream, n, b)
+    try:
+        _build.launch("rank_sum", "rank_sum", _ARGTYPES, (
+            rows.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+            None if valid is None else valid.data_ptr(),
+            int(drop_zero_rows), b, n, c, out.data_ptr(),
+            *(ws[k].data_ptr() for k in ("keys", "list", "tmp", "cnt",
+                                         "seg", "cur", "big", "total")),
+            stream))
+    except RuntimeError:
+        # a stage that did not launch leaves cnt short of zeros
+        _workspaces.pop((rows.device.index, stream), None)
+        raise
+    launch_counts[job] += 1
     return out
 
 
-def launch_sum(rows: torch.Tensor, keys: torch.Tensor, perm: torch.Tensor,
-               n: int, out: torch.Tensor, job: str = "rank_sum") -> None:
-    """The kernel alone: ``rows [B,C]`` added into the zeroed ``out
-    [n,C]`` by the stably sorted int32 ``keys [B]`` and their rows ``perm
-    [B]`` (int64), as :func:`rank_sum` calls it; one launch of ``job``."""
-    stream = _build.stream(rows.device)
-    _build.launch("rank_sum", "rank_sum", _ARGTYPES,
-                  (rows.data_ptr(), keys.data_ptr(), perm.data_ptr(),
-                   rows.shape[0], n, rows.shape[1], out.data_ptr(), stream))
-    launch_counts[job] += 1
+def _workspace(device: torch.device, stream: int, n: int, b: int) -> dict:
+    """This stream's workspace with room for ``n`` keys and ``b`` rows:
+    ``cnt`` [n] zeroed where it is made (the kernels leave it zero), the
+    rest made with torch.empty; each part made anew, larger, when a call
+    needs more."""
+    ws = _workspaces.setdefault((device.index, stream), {})
+    i32 = dict(dtype=torch.int32, device=device)
+    if "cnt" not in ws or ws["cnt"].shape[0] < n:
+        ws.update(cnt=torch.zeros(n, **i32), seg=torch.empty(2 * n, **i32),
+                  cur=torch.empty(n, **i32), big=torch.empty(n, **i32),
+                  total=torch.empty(2, **i32))
+    if "keys" not in ws or ws["keys"].shape[0] < b:
+        m = max(b, 1)
+        ws.update(keys=torch.empty(m, **i32), list=torch.empty(m, **i32),
+                  tmp=torch.empty(m, **i32))
+    return ws
 
 
 def rank_sum_ref(rows: torch.Tensor, idx: torch.Tensor, n: int,
@@ -137,15 +192,15 @@ def gather_backward(g: torch.Tensor, idx: torch.Tensor,
                     n: int) -> torch.Tensor:
     """The backward of :func:`gather_rows` into ``[n,C]``: the cotangent
     ``g [*idx.shape, C]``'s rows added by the flattened ``idx`` in row
-    order. A CUDA tensor's all-zero rows are dropped (the same bits: see
-    the module's docstring) and the kernel launches, counted under
+    order. A CUDA tensor's all-zero rows are dropped in the kernel (the
+    same bits: see the module's docstring), counted under
     ``rank_sum_gather``; a CPU tensor's sum is :func:`rank_sum_ref` of
     every row."""
     rows = g.reshape(-1, g.shape[-1]).contiguous()
     idx = idx.reshape(-1)
     if rows.device.type == "cpu":
         return rank_sum_ref(rows, idx, n)
-    return rank_sum(rows, idx, n, nonzero_rows(rows), job="rank_sum_gather")
+    return launch(rows, idx, n, job="rank_sum_gather", drop_zero_rows=True)
 
 
 class GatherRows(torch.autograd.Function):

@@ -73,17 +73,26 @@ QUEUE_SLEEP_CYCLES = 40_000_000  # the least sleep calls are queued behind
 # device drains them
 QUEUED_LAUNCHES = 512
 RANKS_TIMEOUT = 300             # seconds a torchrun of ranks may take
-# the counter of each kernel wrapper -> the CUDA kernel's symbol in a
-# trace (the seg and v4 pair forwards launch one template, run_fwd_kernel)
+# the row sum's four kernels (ops/rank_sum.py STAGES), the sum first: it
+# launches once a call, count and fill only where the call has rows
+RANK_SUM_SYMBOLS = ("rank_sum_sum_kernel", "rank_sum_count_kernel",
+                    "rank_sum_alloc_kernel", "rank_sum_fill_kernel")
+# the counter of each kernel wrapper -> the CUDA kernels a call launches,
+# by their symbols in a trace: the first launches once a call, so its
+# records count the calls (op_count); a call's device time is that of all
+# of them (op_ms). The seg and v4 pair forwards launch one template,
+# run_fwd_kernel.
 KERNEL_SYMBOLS = {
-    "segpair_fwd": "run_fwd_kernel", "segpair_bwd": "segpair_bwd_kernel",
-    "pair_fwd": "run_fwd_kernel", "pair_bwd": "pair_bwd_kernel",
-    "raster_v2_fwd": "raster_v2_fwd_kernel",
-    "raster_v2_bwd": "raster_v2_bwd_kernel",
-    "raster_v1_fwd": "raster_v1_fwd_kernel",
-    "raster_v1_bwd": "raster_v1_bwd_kernel",
-    "knn": "knn_kernel", "rank_sum": "rank_sum_kernel",
-    "rank_sum_gather": "rank_sum_kernel", "shard_sum": "shard_sum2x_kernel"}
+    "segpair_fwd": ("run_fwd_kernel",),
+    "segpair_bwd": ("segpair_bwd_kernel",),
+    "pair_fwd": ("run_fwd_kernel",), "pair_bwd": ("pair_bwd_kernel",),
+    "raster_v2_fwd": ("raster_v2_fwd_kernel",),
+    "raster_v2_bwd": ("raster_v2_bwd_kernel",),
+    "raster_v1_fwd": ("raster_v1_fwd_kernel",),
+    "raster_v1_bwd": ("raster_v1_bwd_kernel",),
+    "knn": ("knn_kernel",), "rank_sum": RANK_SUM_SYMBOLS,
+    "rank_sum_gather": RANK_SUM_SYMBOLS,
+    "shard_sum": ("shard_sum2x_kernel",)}
 # the loss each epoch of the trainer's log reports
 EPOCH_LOSS = re.compile(r"^epoch \d+: loss=(\S+)", re.M)
 
@@ -378,10 +387,19 @@ def print_ops(rows: Sequence[dict]) -> None:
 
 
 def op_count(rows: Sequence[dict], kernel: str) -> int:
-    """Kernel records of the port kernel counted as ``kernel`` (a key of
-    :data:`KERNEL_SYMBOLS`) in an op table's rows."""
+    """Calls of the port kernel counted as ``kernel`` (a key of
+    :data:`KERNEL_SYMBOLS`) in an op table's rows: the kernel records of
+    its first symbol."""
     return sum(r["count"] for r in rows
-               if KERNEL_SYMBOLS[kernel] in r["op"])
+               if KERNEL_SYMBOLS[kernel][0] in r["op"])
+
+
+def op_ms(rows: Sequence[dict], kernel: str) -> float:
+    """Device ms a step of the port kernel counted as ``kernel`` in an op
+    table's rows: every kernel its calls launch (the row sum's four
+    stages) added up."""
+    return sum(r["ms_per_step"] for r in rows
+               if any(sym in r["op"] for sym in KERNEL_SYMBOLS[kernel]))
 
 
 def traced_ops(fn: Callable, steps: int, out_dir: str,

@@ -41,6 +41,14 @@ repository's ``chip_smoke.py`` helpers:
   cycled): events, device time of queued calls, device time from
   torch.profiler (the kernel's and, for vmem_dyn, every activity of the
   call: the parent tree's fill too), and a digest of the outputs;
+- the row sum (``ops/rank_sum.py``) on chip_smoke.py's phase-2 rank_sum
+  inputs: the 5 fixture cameras' seg backward rows (ms per camera), the
+  seg main path's case, the gather's backward at phase 5's shape (through
+  ``gather_backward``) and a seeded case of a DTU view's shape (196608
+  rows, 91373 kept, into 131072 outputs, 31790 of them reached); events
+  and device time of queued calls, and one digest of its outputs on every
+  phase-2 case, edge cases included, which must be equal in every turn
+  (the run fails otherwise);
 - the kernel lab's scene (chip_smoke.py's phase 8 inputs, PR 14 on): the
   chunked-scan kernels (csrc/lab_chunked.cu: one thread per pixel, each
   batch's live slots in sub-chunks of 16 with the scan form in
@@ -59,7 +67,8 @@ compiler's register and shared-memory report of the eight sources; the
 run ends with a table of the turns and the card's name and power limit.
 ``--probes_only`` times the probes' part alone (a kernel variant's quick
 turn; ``scripts/torch_probe_variants.py`` writes the roll and transpose
-variants this repository measured).
+variants this repository measured); ``--rank_sum_only`` the row sum's
+part alone.
 A tree is a checkout of the repository, e.g. the parent commit unpacked
 with ``git archive`` into a git-ignored directory, or a directory holding
 a copy of ``edgegaussians_tpu_torch/`` (a variant of a kernel). Needs a
@@ -78,14 +87,19 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONEHOT_CASE = "P3 onehot-matmul"
+# the row sum's case of a DTU view's shape: the recipe's pair budget, the
+# kept pairs and reached rows of PR 13's phase-9 view, its capacity
+DTU_ROWS, DTU_KEPT, DTU_OUTPUTS, DTU_REACHED = 196608, 91373, 131072, 31790
 # one CTA alone on faint level-2 rows of these lengths
 DENSE_CHAIN_SLOTS = (64, 640)
 
 
-def turn(root: str, probes_only: bool = False) -> dict:
+def turn(root: str, probes_only: bool = False,
+         rank_sum_only: bool = False) -> dict:
     """Build and time ``root``'s kernels (``probes_only``: the roll,
-    transpose, vmem_dyn and shard-sum part alone); this repository's
-    chip_smoke.py makes the inputs."""
+    transpose, vmem_dyn and shard-sum part alone; ``rank_sum_only``: the
+    row sum's part alone); this repository's chip_smoke.py makes the
+    inputs."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -103,6 +117,9 @@ def turn(root: str, probes_only: bool = False) -> dict:
     if probes_only:
         with torch.no_grad():
             return {**out, **probe_turn(cs, device)}
+    if rank_sum_only:
+        with torch.no_grad():
+            return {**out, **rank_sum_turn(cs, device)}
     with torch.no_grad():
         cases, basis = cs.seg_cases(device)
         for c in cases:
@@ -139,6 +156,7 @@ def turn(root: str, probes_only: bool = False) -> dict:
         out.update(v1_turn(cs, device))
         out.update(pair_turn(cs, device))
         out.update(lab_turn(cs, device))
+        out.update(rank_sum_turn(cs, device))
         t = probes.case_tensors(ONEHOT_CASE, device)
         lib = cs.probe_library(ONEHOT_CASE, t)
         out["probe_onehot_ms"] = cs.cuda_ms(
@@ -224,6 +242,48 @@ def probe_turn(cs, device) -> dict:
     torch.cuda.synchronize()
     for name in ("lab_probes", "shard_sum"):
         out[f"{name}_ptxas"] = ptxas(name)
+    return out
+
+
+def rank_sum_turn(cs, device) -> dict:
+    """The row sum on chip_smoke.py's phase-2 rank_sum cases and a seeded
+    case of a DTU view's shape (DTU_ROWS rows, DTU_KEPT kept, into
+    DTU_OUTPUTS outputs of which DTU_REACHED are reached; PR 13's phase-9
+    view): events and device time of queued calls (per camera over the
+    fixture's cameras, each queued on its own, as phase 2 times them),
+    and a digest of the outputs of every case."""
+    import torch
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+
+    def call_of(case):
+        _, rows, idx, n, valid, gather = case
+        if gather:
+            return lambda: rs.gather_backward(rows, idx, n)
+        return lambda: rs.rank_sum(rows, idx, n, valid)
+    cases = cs.rank_sum_cases(device)
+    gen = torch.Generator(device=device).manual_seed(21)
+    live = torch.randperm(DTU_OUTPUTS, generator=gen,
+                          device=device)[:DTU_REACHED]
+    idx = live[torch.randint(0, DTU_REACHED, (DTU_ROWS,), generator=gen,
+                             device=device)]
+    valid = torch.zeros(DTU_ROWS, dtype=torch.bool, device=device)
+    valid[torch.randperm(DTU_ROWS, generator=gen,
+                         device=device)[:DTU_KEPT]] = True
+    rows = torch.randn((DTU_ROWS, 10), generator=gen, device=device)
+    cases.append(("dtu shape", rows, idx, DTU_OUTPUTS, valid, False))
+    calls = {c[0]: call_of(c) for c in cases}
+    cams = [f for name, f in calls.items() if name.startswith("camera")]
+    out = {"rank_sum_camera_ms": float(sum(
+        cs.cuda_ms(f, 20) for f in cams)) / len(cams),
+        "rank_sum_camera_device_ms": float(sum(
+            cs.queued_ms(f, 20) for f in cams)) / len(cams)}
+    for name in ("main path", "gather", "dtu shape"):
+        key = "rank_sum_" + name.replace(" ", "_")
+        out[f"{key}_ms"] = cs.cuda_ms(calls[name], 20)
+        out[f"{key}_device_ms"] = cs.queued_ms(calls[name], 20)
+    out["rank_sum_digest"] = digest(f() for f in calls.values())
+    torch.cuda.synchronize()
+    out["rank_sum_ptxas"] = ptxas("rank_sum")
     return out
 
 
@@ -444,16 +504,20 @@ def main() -> int:
     ap.add_argument("--probes_only", action="store_true",
                     help="time the roll, transpose, vmem_dyn and shard-sum "
                     "part alone")
+    ap.add_argument("--rank_sum_only", action="store_true",
+                    help="time the row sum's part alone")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(turn(args.turn, args.probes_only)), flush=True)
+        print(json.dumps(turn(args.turn, args.probes_only,
+                              args.rank_sum_only)), flush=True)
         return 0
     rows = []
     for root in args.trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--turn", root]
-                              + ["--probes_only"] * args.probes_only,
+                              + ["--probes_only"] * args.probes_only
+                              + ["--rank_sum_only"] * args.rank_sum_only,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -469,6 +533,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    sums = {r.get("rank_sum_digest") for r in rows}
+    if len(sums) > 1:
+        print(f"torch_kernel_ab: the row sum's digests differ between the "
+              f"trees: {sums}", file=sys.stderr)
+        return 1
     return 0
 
 

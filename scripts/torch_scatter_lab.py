@@ -16,9 +16,10 @@ row), and G is the port's production row sum:
   E  the L2 frame compacted by the bin-time counts (valid slots only)
      into P2cap rows, then one add of T*K1 + P2cap rows
   F  both frames compacted, P1cap + P2cap rows
-  G  sort + permute + segment sum: ``ops/rank_sum.rank_sum`` (the
-     ``rank_sum`` kernel after a stable ``torch.sort`` on the card), and
-     ``G_plain``, its plain version ``rank_sum_ref``
+  G  the production row sum ``ops/rank_sum.rank_sum`` (on the card
+     ``csrc/rank_sum.cu``'s counting sort over the ranks and in-order
+     sums, four launches a call: ``launches`` and ``device_ms`` count
+     them all), and ``G_plain``, its plain version ``rank_sum_ref``
 
 The scene is the JAX lab's (:32-38, :53-64): 20000 random Gaussians at
 800x800, f = 1111, tile 16, K1 128, K2 384, t2 625, 64 tiles a Gaussian
@@ -214,7 +215,7 @@ def variants(sc: dict, p1cap: int = P1CAP, p2cap: int = P2CAP) -> dict:
               f"{rows_l2} slots)", var_e, (None, p2cap)),
         "F": (f"both compacted ({p1cap}+{p2cap} rows)", var_f,
               (p1cap, p2cap)),
-        "G": ("sort+permute+segment sum (ops/rank_sum.rank_sum)", var_g,
+        "G": ("counting sort + in-order sums (ops/rank_sum.rank_sum)", var_g,
               every),
         "G_plain": ("its plain version (rank_sum_ref: one index_add_)",
                     var_g_plain, every),

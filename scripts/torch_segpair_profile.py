@@ -17,9 +17,10 @@ goes to ``<out>_<variant>/trace.json``; ms a step and Mpx/s by wall
 clock over the traced steps, the op table (ms a step, %, kernel records,
 host launch records, op) read from the trace's kernel records by
 ``torch_common.trace_ops`` (a window short of kernel records is read
-again), the total device ms a step and the port's kernel launches over
-the window. Prints each table's ``--top`` ops and last a JSON object of
-the whole tables.
+again), the total device ms a step, the port's kernel launches over the
+window and each one's device ms a step (``kernel_ms``: every kernel its
+calls launch, the row sum's four stages added up). Prints each table's
+``--top`` ops and last a JSON object of the whole tables.
 
 One divergence from the JAX script, on purpose: it renders
 ``viewmats[v]`` for v in 0..7 and ``viewmats[i % 8]``, but the fixture
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from torch_common import (
-    FIXTURE, OUT_ROOT, card, op_table, print_ops, resolve_device,
+    FIXTURE, OUT_ROOT, card, op_ms, op_table, print_ops, resolve_device,
     traced_ops)
 
 from edgegaussians_tpu_torch.ops.rasterize import rasterize
@@ -118,10 +119,11 @@ def profile_variant(fx: dict, variant: str, steps: int, out: str,
                                    f"{out}_{variant}", device)
     table = op_table(ops, steps)
     px = fx["width"] * fx["height"]
+    kernels = {k: v for k, v in counts.items() if v}
     return {"ms_per_step": wall * 1e3, "mpx_per_s": px / wall / 1e6,
             "total_device_ms": table["total_device_ms"],
-            "rows": table["rows"],
-            "kernels": {k: v for k, v in counts.items() if v},
+            "rows": table["rows"], "kernels": kernels,
+            "kernel_ms": {k: op_ms(table["rows"], k) for k in kernels},
             "trace": os.path.join(f"{out}_{variant}", "trace.json")}
 
 
@@ -130,7 +132,8 @@ def print_table(variant: str, res: dict, top: int) -> None:
           f"ms/step ({res['mpx_per_s']:.1f} Mpx/s wall) ===")
     print_ops(res["rows"][:top])
     print(f"total device time: {res['total_device_ms']:.3f} ms/step; "
-          f"port kernels launched {res['kernels']}")
+          f"port kernels launched {res['kernels']}, their device ms a step "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in res["kernel_ms"].items()))
 
 
 def main(argv=None) -> int:

@@ -62,11 +62,16 @@ run, stops on group and batch edges and a misaligned feats: the image and
 dfeats gates above, the rows past a stop exactly zero, the same bits from
 two launches. The row sum of the compositors' backwards (rank_sum): the
 CPU plain version's bits exactly (both add each output's rows in row
-order), the same bits from two launches, and within 1e-5 of max-abs of
-the plain version on the card (index_add_ atomics); two backward passes
+order), also on one key of 5000 rows, runs of ~130, one output, every
+row dropped and no rows, and across calls whose n and row count grow and
+shrink; the same bits from two launches; at most 4 kernel launches a
+call and no fill or copy; and within 1e-5 of max-abs of the plain
+version on the card (index_add_ atomics); two backward passes
 of the seg, v4 pair and two-level renders give the same dpacked and dsink
 bits. The row sum as the backward of ``gather_rows`` (rank_sum_gather):
 the CPU's bits on skewed int64 indices whose rows are mostly zeros, and
+on all-zero and NaN rows (NaN outputs as NaN: the card's adds give the
+canonical NaN), and
 within 1e-5 of max-abs of autograd's backward of ``x[idx]`` on the card. Every one-kernel-a-call check counts the host's launch records
 (_check_one_kernel_per_call).
 """
@@ -2166,6 +2171,111 @@ def test_gather_rows_backward_is_the_cpu_sum_of_x_idx_autograd(device, dead):
     _, aten = grad(device, lambda a, i: a[i])
     scale = float(cpu.abs().max())
     torch.testing.assert_close(got, aten, rtol=0, atol=1e-5 * scale)
+
+
+def _same_bits(a, b):
+    """The same bits, but where both are NaN (the card's adds give the
+    canonical NaN, the CPU's keep the payload of the NaN they add)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
+
+
+def _edge_call(name, device):
+    """(the CPU plain version's sum, a call of the kernel on the card, the
+    job it counts under) of tests/test_torch_rank_sum.py's edge case."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    from test_torch_rank_sum import _edge_case
+    rows, idx, n, valid, drop_zero = _edge_case(name)
+    if drop_zero:
+        return (rs.gather_backward(rows, idx, n),
+                lambda: rs.gather_backward(rows.to(device), idx.to(device), n),
+                "rank_sum_gather")
+    dev = [x.to(device) for x in (rows, idx, valid)]
+    return (rs.rank_sum(rows, idx, n, valid),
+            lambda: rs.rank_sum(*dev[:2], n, dev[2]), "rank_sum")
+
+
+@pytest.mark.parametrize("name", ["one_key_5000", "medium_runs", "n_one",
+                                  "all_dropped", "empty",
+                                  "gather_zeros_nan"])
+def test_rank_sum_kernel_on_long_runs_and_empty_inputs(device, name):
+    """The edge cases of tests/test_torch_rank_sum.py on the card: a run of
+    5000 rows (sorted in the global workspace), runs of ~130 (in shared
+    memory), one output, every row dropped, no rows, and the gather's
+    all-zero and NaN rows (dropped and kept in the kernel): the CPU plain
+    version's bits (NaN as NaN), the same bits from two launches, one
+    count a call."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    cpu, call, job = _edge_call(name, device)
+    before = rs.launch_counts[job]
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert rs.launch_counts[job] == before + 2
+    assert got.shape == cpu.shape
+    assert _same_bits(got, cpu), name
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_rank_sum_workspace_follows_n_and_b_up_and_down(device):
+    """Calls back to back with n 16384 -> 131072 -> 16384 and the rows
+    49152 -> 196608 -> 4000 -> 49152, as staged capacity and the other
+    jobs interleave them: each the CPU plain version's bits, so no count
+    or total is left over from a call before it."""
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    from test_torch_rank_sum import _case
+    for seed, (b, n) in enumerate([(49152, 16384), (196608, 131072),
+                                   (4000, 16384), (49152, 16384),
+                                   (196608, 131072)]):
+        rows, idx, valid = _case(20 + seed, b, n)
+        cpu = rs.rank_sum(rows, idx, n, valid)
+        got = rs.rank_sum(rows.to(device), idx.to(device), n,
+                          valid.to(device))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           cpu.view(torch.int32)), (b, n)
+
+
+@pytest.mark.parametrize("job", ["rank_sum", "rank_sum_gather"])
+def test_rank_sum_launches_at_most_four_kernels_a_call(device, job):
+    """Ten calls in one torch.profiler window: one count a call under the
+    job, at most 4 host launch records a call and no memset or memcpy (no
+    sort, no fill of the output), and every device record that comes
+    through is one of the row sum's stages."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgegaussians_tpu_torch.ops import rank_sum as rs
+    from test_torch_rank_sum import _case
+    rows, idx, valid = (x.to(device) for x in _case(1, 49152, 16384))
+    rows3 = rows[:, :3].contiguous()
+    if job == "rank_sum":
+        def call():
+            rs.rank_sum(rows, idx, 16384, valid)
+    else:
+        def call():
+            rs.gather_backward(rows3, idx, 16384)
+    call()
+    torch.cuda.synchronize()
+    calls = 10
+    before = rs.launch_counts[job]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    assert rs.launch_counts[job] == before + calls
+    on_host = [e.name for e in prof.events()
+               if e.device_type != DeviceType.CUDA]
+    launches = [n for n in on_host if "LaunchKernel" in n]
+    moves = [n for n in on_host if "Memset" in n or "Memcpy" in n]
+    assert len(launches) <= 4 * calls and not moves, (launches, moves)
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    assert len(on_device) <= 4 * calls, on_device
+    assert all(any(k in name for k in rs.STAGES) for name in on_device), \
+        on_device
 
 
 def test_rank_sum_wrapper_checks_inputs(device):

@@ -6,10 +6,13 @@ tests/test_torch_kernels.py, on a GPU.
 - Against a float64 segment sum: each output element within
   (k - 1) * 2^-24 * sum |x| + 1e-30 of the exact sum of its k inputs, the
   error bound of k - 1 f32 additions in any order.
-- The kernel's algebra, modelled on the CPU (a stable sort of the keys,
-  then the head of each key's run adding the run in order), equals the
-  plain version bit for bit: so the kernel, which makes the same f32
-  additions, owes the CPU path its bits.
+- The kernel's algebra, modelled on the CPU (a count of each key's rows,
+  a segment a key, the segments filled in a random order, each segment
+  put back in row order as the kernel does, then added in that order),
+  equals the plain version bit for bit, also on one key of 5000 rows,
+  one output, every row dropped, no rows, and the gather's all-zero and
+  NaN rows: so the kernel, which makes the same f32 additions, owes the
+  CPU path its bits.
 - At the three call sites (``segpair.pair_grads_to_packed``,
   ``composite.scatter_slot_grads``, ``composite.pair_prefix_grads``),
   dpacked and dsink equal what the ``index_add_`` they replaced gave,
@@ -69,24 +72,113 @@ def _oracle(rows, idx, n, valid):
     return total, bound
 
 
-def _kernel_model(rows, idx, n, valid):
-    """The kernel's walk on the CPU: keys sorted by a stable sort, then
-    at the head of each key's run, 0 + r_0 + r_1 + ... in run order."""
-    keys = torch.where(valid, idx, torch.full_like(idx, n))
-    sk, perm = torch.sort(keys, stable=True)
+# csrc/rank_sum.cu's constants: keys a CTA of the alloc stage, runs one
+# lane orders and adds, runs a warp orders in registers, radix bits a pass
+ALLOC_KEYS = 1024
+THREAD_RUN = 8
+SHORT_RUN = 32
+RADIX_BITS = 8
+
+
+def _order_run(seg):
+    """The sum stage's ordering of one key's row numbers (distinct): up to
+    THREAD_RUN rows, an odd-even transposition network over THREAD_RUN
+    slots padded with INT_MAX; up to SHORT_RUN, each row put at its rank,
+    the count of smaller rows; past that, stable LSD radix passes of
+    RADIX_BITS bits over (row - least row), each a stable partition by its
+    digit."""
+    n = seg.shape[0]
+    if n <= THREAD_RUN:
+        v = np.full(THREAD_RUN, np.iinfo(np.int32).max, np.int64)
+        v[:n] = seg
+        for rnd in range(THREAD_RUN):
+            for q in range(rnd & 1, THREAD_RUN - 1, 2):
+                v[q], v[q + 1] = min(v[q], v[q + 1]), max(v[q], v[q + 1])
+        return v[:n]
+    if n <= SHORT_RUN:
+        out = np.empty_like(seg)
+        out[(seg[None, :] < seg[:, None]).sum(1)] = seg
+        return out
+    lo = int(seg.min())
+    for shift in range(0, int(seg.max() - lo).bit_length(), RADIX_BITS):
+        digit = ((seg - lo) >> shift) & ((1 << RADIX_BITS) - 1)
+        seg = seg[np.argsort(digit, kind="stable")]
+    return seg
+
+
+def _kernel_model(rows, idx, n, valid, drop_zero=False, seed=0):
+    """The kernel's four stages on the CPU: (1) count each kept row's key;
+    (2) give each key a segment of that many slots, the alloc stage's CTAs
+    of ALLOC_KEYS keys taking theirs in a seeded random order, as their
+    atomics on the running total may; (3) fill each segment with its rows'
+    numbers, the kept rows arriving in a seeded random order; (4) order
+    each segment as the sum stage does, then add its rows in that order,
+    0 + r_0 + r_1 + ..., one f32 add at a time (zeros where a key has no
+    row)."""
+    r = np.random.default_rng(seed)
+    i = idx.numpy().astype(np.int64)
+    keep = (i >= 0) & (i < n)
+    if valid is not None:
+        keep &= valid.numpy()
+    if drop_zero:
+        keep &= (rows.numpy() != 0).any(1)
+    keys = np.where(keep, i, n)
+    cnt = np.bincount(keys[keep], minlength=n)                    # (1)
+    start = np.empty(n, np.int64)                                 # (2)
+    total = 0
+    for blk in r.permutation(-(-n // ALLOC_KEYS)):
+        part = slice(blk * ALLOC_KEYS, (blk + 1) * ALLOC_KEYS)
+        start[part] = total + np.cumsum(cnt[part]) - cnt[part]
+        total += int(cnt[part].sum())
+    arrived = r.permutation(np.flatnonzero(keep))                 # (3)
+    k = keys[arrived]
+    by_key = np.argsort(k, kind="stable")
+    ks = k[by_key]
+    within = np.arange(ks.shape[0]) - np.searchsorted(ks, ks)
+    slots = np.empty(total, np.int64)
+    slots[start[ks] + within] = arrived[by_key]
+    for key in np.flatnonzero(cnt):                               # (4)
+        run = slice(start[key], start[key] + cnt[key])
+        slots[run] = _order_run(slots[run])
     out = torch.zeros((n, rows.shape[1]), dtype=torch.float32)
-    heads = torch.nonzero(torch.cat([torch.ones(1, dtype=torch.bool),
-                                     sk[1:] != sk[:-1]])).flatten()
-    ends = torch.cat([heads[1:], torch.tensor([sk.shape[0]])])
-    lens = ends - heads
-    keep = sk[heads] < n
-    heads, lens, key = heads[keep], lens[keep], sk[heads][keep]
-    acc = torch.zeros((key.shape[0], rows.shape[1]), dtype=torch.float32)
-    for j in range(int(lens.max()) if lens.numel() else 0):
+    lens = torch.from_numpy(cnt)
+    first = torch.from_numpy(start)
+    order = torch.from_numpy(slots)
+    for j in range(int(cnt.max()) if n and total else 0):
         on = lens > j
-        acc[on] = acc[on] + rows[perm[heads[on] + j]]
-    out[key] = acc
+        out[on] = out[on] + rows[order[first[on] + j]]
     return out
+
+
+def _gather_case(seed=9, b=6000, n=400, c=3):
+    """Gather-backward rows: a third all +0 or -0 (the dead query rows'
+    cotangents), a few NaN; one output reached by -0 rows alone, one by a
+    NaN row."""
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, n - 2, b)
+    rows = r.standard_normal((b, c)).astype(np.float32)
+    dead = r.random(b) < 0.35
+    rows[dead] = np.where(r.random((int(dead.sum()), c)) < 0.5, 0.0, -0.0)
+    idx[:5], rows[:5] = n - 2, -0.0
+    idx[5], rows[5, 1] = n - 1, np.nan
+    rows[r.choice(b, 7, replace=False), r.integers(0, c, 7)] = np.nan
+    return torch.from_numpy(rows), torch.from_numpy(idx)
+
+
+def _edge_case(name):
+    """(rows, idx, n, valid, drop_zero) of the edge cases the kernel's
+    paths must get right: runs past the shared-memory sort (one key of
+    5000 rows) and inside it (~130 rows a key), one output, every row
+    dropped, no rows, and the gather's zero and NaN rows."""
+    if name == "gather_zeros_nan":
+        rows, idx = _gather_case()
+        return rows, idx, 400, None, True
+    spec = EDGE_CASES[name]
+    rows, idx, valid = _case(spec["seed"], spec["b"], spec["n"],
+                             drop=spec.get("drop", 0.2))
+    if "key" in spec:
+        idx = torch.full_like(idx, spec["key"])
+    return rows, idx, spec["n"], valid, False
 
 
 CASES = {
@@ -96,6 +188,14 @@ CASES = {
     "shuffled": dict(seed=3, b=3000, n=500, order="shuffled"),
     "wide": dict(seed=4, b=20000, n=16384, c=10, spread=6.0),
     "no_drop": dict(seed=5, b=2000, n=64, drop=0.0),
+}
+EDGE_CASES = {
+    "one_key_5000": dict(seed=10, b=5000, n=64, key=17, drop=0.0),
+    "medium_runs": dict(seed=11, b=6000, n=48),
+    "n_one": dict(seed=12, b=3000, n=1),
+    "all_dropped": dict(seed=13, b=2000, n=100, drop=1.0),
+    "empty": dict(seed=14, b=0, n=16),
+    "gather_zeros_nan": None,
 }
 
 
@@ -113,13 +213,33 @@ def test_rank_sum_plain_version_against_a_float64_oracle(name):
     assert int((~reached).sum()) > 0 and bool((got[~reached] == 0).all())
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(EDGE_CASES))
 def test_rank_sum_kernel_model_is_the_plain_version_bit_for_bit(name):
-    rows, idx, valid = _case(**CASES[name])
-    n = CASES[name]["n"]
-    plain = rank_sum_ref(rows, idx, n, valid)
-    model = _kernel_model(rows, idx, n, valid)
-    assert torch.equal(plain.view(torch.int32), model.view(torch.int32))
+    """The model of the kernel's stages, its atomics' order drawn from two
+    seeds, gives the plain version's bits; the gather's case drops its
+    all-zero rows as the kernel does, the plain version adds every row."""
+    if name in CASES:
+        rows, idx, valid = _case(**CASES[name])
+        n, drop_zero = CASES[name]["n"], False
+    else:
+        rows, idx, n, valid, drop_zero = _edge_case(name)
+    plain = rank_sum_ref(rows, idx, n, None if drop_zero else valid)
+    assert plain.shape == (n, rows.shape[1])
+    for seed in (0, 1):
+        model = _kernel_model(rows, idx, n, valid, drop_zero, seed)
+        assert torch.equal(plain.view(torch.int32), model.view(torch.int32))
+
+
+def test_rank_sum_stages_are_the_kernels_of_its_source():
+    """ops/rank_sum.STAGES names csrc/rank_sum.cu's kernels, each once, in
+    the order its entry launches them."""
+    import re
+    from edgegaussians_tpu_torch.ops import _build, rank_sum as rs
+    src = (_build.CSRC / "rank_sum.cu").read_text()
+    defined = re.findall(r"^(rank_sum_\w+_kernel)\(", src, re.M)
+    launched = re.findall(r"^\s+(rank_sum_\w+_kernel)<<<", src, re.M)
+    assert sorted(defined) == sorted(rs.STAGES)
+    assert tuple(launched) == rs.STAGES
 
 
 def test_rank_sum_drop_row_and_no_valid_mask():

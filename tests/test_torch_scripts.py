@@ -707,6 +707,22 @@ def test_trace_ops_counts_kernel_and_launch_records_per_op(tmp_path):
     assert torch_common.op_count(table["rows"], "segpair_bwd") == 0
 
 
+def test_op_ms_adds_up_every_stage_of_the_row_sum():
+    """The row sum's calls are the records of its last stage, the sum
+    kernel (one a call); its device time is that of its four kernels."""
+    from edgegaussians_tpu_torch.ops import rank_sum
+    assert set(torch_common.RANK_SUM_SYMBOLS) == set(rank_sum.STAGES)
+    rows = [{"op": f"(anonymous namespace)::{k}(int const*, ...)",
+             "ms_per_step": ms, "count": 3}
+            for k, ms in zip(rank_sum.STAGES, (0.002, 0.001, 0.002, 0.004))]
+    rows.append({"op": "elementwise", "ms_per_step": 0.5, "count": 9})
+    for job in ("rank_sum", "rank_sum_gather"):
+        assert torch_common.op_count(rows, job) == 3
+        assert torch_common.op_ms(rows, job) == pytest.approx(0.009)
+    assert torch_common.op_count(rows, "knn") == 0
+    assert torch_common.op_ms(rows, "knn") == 0
+
+
 def test_trace_ops_refuses_a_window_short_of_kernel_records(tmp_path,
                                                             monkeypatch):
     assert torch_common.trace_ops(_trace(lost=1)) is None
